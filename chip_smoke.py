@@ -1,0 +1,386 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port's main path on one CUDA card.
+
+    python3 chip_smoke.py [--phases 0,1,2,3,4]
+
+Phases (all by default; each raises on failure and the script then exits
+nonzero without a result line):
+
+0. environment: the card's name and power limit (nvidia-smi), torch/CUDA
+   versions; requires CUDA; TF32 off.
+1. build the CUDA chain kernels from ``dmft_lanc_ed_tpu_torch/csrc``.
+2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag) against
+   its plain PyTorch version at the 854k-state (6,6) sector of nbath = 11,
+   with the tolerances stated below, and the time per chain step of both.
+3. the two-stage ground state of that sector on the card against host
+   ARPACK (scipy eigsh, tol 1e-13): |dE| <= 1e-10.
+4. the main path: ``run_dmft`` of the one-orbital Bethe-lattice Hubbard
+   model at nbath = 11, T = 0, 2 loops, on the card; every chain kernel
+   must launch in it, outputs must be finite, 0 <= dens <= 2, and loop 1's
+   Egs must equal phase 3's energy to 1e-9.
+
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SOURCE = "dmft_lanc_ed_tpu_torch/csrc/bs_chain.cu"
+REPLACES = {"tridiag": "dmft_lanc_ed_tpu/ops/bs_chain.py:207",
+            "cheb": "dmft_lanc_ed_tpu/ops/bs_chain.py:331",
+            "gf_tridiag": "dmft_lanc_ed_tpu/ops/bs_chain.py:540"}
+NBATH = 11
+HALF = (NBATH + 1) // 2   # the half-filled sector (6,6)
+DEVICE = "cuda"
+
+
+def say(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn):
+    """Device milliseconds of one fn() after a warm-up, by CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def phase0():
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    say(smi.stdout.strip())
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def phase1():
+    from dmft_lanc_ed_tpu_torch import _kernels
+    t0 = time.perf_counter()
+    so = _kernels.build()
+    _kernels.lib()
+    say(f"phase 1: built {os.path.relpath(so, ROOT)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def sector_854k():
+    """cfg, sector, host Hamiltonian and the band-sparse op on the card."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import build_blocksparse_op
+    cfg = pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,))
+    sec = pt.SectorTable(cfg).sector(pt.qn(HALF, HALF))
+    h = pt.build_sector_hamiltonian(cfg, sec, np.zeros((1, 1, 1, 1)),
+                                    pt.init_bath(cfg))
+    t0 = time.perf_counter()
+    op = build_blocksparse_op(h, DEVICE)
+    say(f"sector ({HALF},{HALF}): dim {sec.dim}, padded {op.padded_shape}, "
+        f"W_dw {op.pop.w_dw}, W_up {op.pop.w_up}, rank "
+        f"{op.pop.diag_a.shape[1]}, op built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cfg, sec, h, op
+
+
+def host_ground_state(h, sec):
+    """Host ARPACK ground state of the assembled CSR (bench.py's oracle)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    def factor_csr(cols, vals, n):
+        rows = np.repeat(np.arange(n), cols.shape[1])
+        m = sp.csr_matrix((np.asarray(vals, np.float64).ravel(),
+                           (rows, np.asarray(cols).ravel())), shape=(n, n))
+        m.eliminate_zeros()
+        return m
+    t0 = time.perf_counter()
+    hfull = (sp.kron(sp.identity(sec.dim_dw, format="csr"),
+                     factor_csr(h.up_cols, h.up_vals, sec.dim_up))
+             + sp.kron(factor_csr(h.dw_cols, h.dw_vals, sec.dim_dw),
+                       sp.identity(sec.dim_up, format="csr"))
+             + sp.diags(np.asarray(h.diag, np.float64).ravel())).tocsr()
+    w, v = spl.eigsh(hfull, k=1, which="SA", tol=1e-13)
+    say(f"host ARPACK: E0 = {w[0]:+.12f} ({time.perf_counter() - t0:.1f} s)")
+    return float(w[0]), v[:, 0]
+
+
+def _tridiag_eigs(al, be):
+    t = np.diag(al) + np.diag(be[:-1], 1) + np.diag(be[:-1], -1)
+    return np.linalg.eigh(t)
+
+
+def _physical_gf_chain(v_gs, e0, m, g_cf):
+    """B4 kernel and plain version on c^+_up |GS> in the (HALF+1, HALF)
+    target sector -> both G(iw) (poles shifted by E0)."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.gf import apply_op
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import (build_blocksparse_op,
+                                                        to_padded)
+    cfg = pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,))
+    table = pt.SectorTable(cfg)
+    sec_i = table.sector(pt.qn(HALF, HALF))
+    sec_j = table.sector(pt.qn(HALF + 1, HALF))
+    h = pt.build_sector_hamiltonian(cfg, sec_j, np.zeros((1, 1, 1, 1)),
+                                    pt.init_bath(cfg))
+    op_j = build_blocksparse_op(h, DEVICE)
+    vv = apply_op(cfg, sec_i, sec_j, v_gs, 0, 0, True)
+    vv = vv / np.linalg.norm(vv)
+    vp = to_padded(op_j, vv.reshape(1, sec_j.dim_dw, sec_j.dim_up))
+    out = []
+    for fn in (bc.gf_tridiag_call, bc.gf_tridiag_batch_plain):
+        al, be = fn(op_j if fn is bc.gf_tridiag_call else op_j.pop, vp, m)
+        out.append(g_cf(al[0].cpu().numpy(), be[0].cpu().numpy(), e0))
+    return out
+
+
+def phase2(op, e0, v_gs):
+    """Each chain kernel against its plain version on the same inputs."""
+    import torch
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import from_padded, to_padded
+    pop = op.pop
+    rng = np.random.default_rng(2024)
+
+    def start(n):
+        """n normalized random starts, permuted padded f32 on the card."""
+        v = rng.standard_normal((n, op.dim_dw, op.dim_up))
+        v /= np.linalg.norm(v.reshape(n, -1), axis=1)[:, None, None]
+        return to_padded(op, v)
+    rows = []
+
+    # B2: m = 96, first 16 alpha/beta within 1e-4 * max(1, |alpha|max);
+    # extreme Ritz values within 1e-4 * span
+    m = 96
+    v0 = start(1)[0]
+    al_k, be_k = bc.tridiag_call(op, v0, m)
+    al_p, be_p = bc.tridiag_chain_plain(pop, v0[None], m)
+    al_k, be_k = al_k.cpu().numpy(), be_k.cpu().numpy()
+    al_p, be_p = al_p[0].cpu().numpy(), be_p[0].cpu().numpy()
+    scale = max(1.0, np.abs(al_p).max())
+    err = max(np.abs(al_k[:16] - al_p[:16]).max(),
+              np.abs(be_k[:16] - be_p[:16]).max())
+    th_k, _ = _tridiag_eigs(al_k, be_k)
+    th_p, s_p = _tridiag_eigs(al_p, be_p)
+    span = th_p[-1] - th_p[0]
+    ritz_err = max(abs(th_k[0] - th_p[0]), abs(th_k[-1] - th_p[-1]))
+    say(f"B2 tridiag m={m}: max|d alpha,beta|[:16] = {err:.3e} "
+        f"(tol {1e-4 * scale:.3e}); extreme Ritz diff {ritz_err:.3e} "
+        f"(tol {1e-4 * span:.3e})")
+    if not (err <= 1e-4 * scale and ritz_err <= 1e-4 * span):
+        raise AssertionError("B2 kernel disagrees with its plain version")
+    ms_k = cuda_ms(lambda: bc.tridiag_call(op, v0, m)) / m
+    ms_p = cuda_ms(lambda: bc.tridiag_chain_plain(pop, v0[None], m)) / m
+    rows.append(("tridiag", err, ms_k, ms_p))
+
+    # B3: m = 128 with a filter window from the B2 Ritz bounds; filtered
+    # vectors' relative difference <= 1e-3, ground-state overlaps to 1e-4
+    # the window ground_state_seed would take: cut inside the gap to the
+    # first Ritz value outside the theta_0 ghost cluster
+    distinct = th_p[th_p > th_p[0] + bc._GHOST_TOL * span]
+    gap = distinct[0] - th_p[0]
+    b = th_p[-1] + 1e-3 * span
+    cut = th_p[0] + 0.35 * gap
+    c, e = 0.5 * (b + cut), 0.5 * (b - cut)
+    kk = bc._bucket_k(128)
+    vk, nk = bc.cheb_call(op, v0, kk, float(np.float32(c)),
+                          float(np.float32(1.0 / e)))
+    vp, npn = bc.cheb_chain_plain(pop, v0, kk, float(np.float32(c)),
+                                  float(np.float32(1.0 / e)))
+    vk = vk / nk.float()
+    vp = vp / npn.float()
+    rel = float(torch.linalg.vector_norm(vk - vp)
+                / torch.linalg.vector_norm(vp))
+    gs = torch.as_tensor(v_gs, device=DEVICE)
+
+    def overlap(vpad):
+        vn = from_padded(op, vpad, torch.float64).reshape(-1)
+        return abs(float(vn @ gs) / float(torch.linalg.vector_norm(vn)))
+    ov_k, ov_p = overlap(vk), overlap(vp)
+    say(f"B3 cheb m={kk}: rel diff {rel:.3e} (tol 1e-3); GS overlap "
+        f"kernel {ov_k:.8f} plain {ov_p:.8f} (start "
+        f"{overlap(v0):.3e}, tol 1e-4)")
+    if not (rel <= 1e-3 and abs(ov_k - ov_p) <= 1e-4):
+        raise AssertionError("B3 kernel disagrees with its plain version")
+    vdiff = float((vk - vp).abs().max())
+    ms_k = cuda_ms(lambda: bc.cheb_call(op, v0, kk, c, 1.0 / e)) / kk
+    ms_p = cuda_ms(lambda: bc.cheb_chain_plain(pop, v0, kk, c, 1.0 / e)) / kk
+    rows.append(("cheb", vdiff, ms_k, ms_p))
+
+    # B4: 4 chains, m = 200 (the main path's lanc_ngfiter). The first 8
+    # alpha/beta within 5e-5 * scale, and the continued-fraction G(iw) on
+    # 20 points within 2e-5 from each chain's first 24 steps — the chain
+    # length of the reference's contract (test_bs_chain.py:109-139). Past a
+    # few dozen steps a chain without reorthogonalization has lost
+    # orthogonality, and two f32 summation orders then diverge in the
+    # unconverged interior of a random start's spectrum: the G of all 200
+    # steps is printed, not gated.
+    m, nb, m_g = 200, 4, 24
+    vb = start(nb)
+    al_k, be_k = bc.gf_tridiag_call(op, vb, m)
+    al_p, be_p = bc.gf_tridiag_batch_plain(pop, vb, m)
+    al_k, be_k = al_k.cpu().numpy(), be_k.cpu().numpy()
+    al_p, be_p = al_p.cpu().numpy(), be_p.cpu().numpy()
+    z = 1j * np.linspace(0.05, 3.0, 20)
+
+    def g_cf(al, be, shift=0.0):
+        th, s = _tridiag_eigs(al, be)
+        return (s[0] ** 2 / (z[:, None] - (th - shift))).sum(1)
+    err_ab = err_g = err_g200 = 0.0
+    for i in range(nb):
+        scale = max(1.0, np.abs(al_p[i]).max())
+        err_ab = max(err_ab, max(np.abs(al_k[i, :8] - al_p[i, :8]).max(),
+                                 np.abs(be_k[i, :8] - be_p[i, :8]).max())
+                     / scale)
+        err_g = max(err_g, np.abs(g_cf(al_k[i, :m_g], be_k[i, :m_g])
+                                  - g_cf(al_p[i, :m_g], be_p[i, :m_g])).max())
+        err_g200 = max(err_g200, np.abs(g_cf(al_k[i], be_k[i])
+                                        - g_cf(al_p[i], be_p[i])).max())
+    say(f"B4 gf_tridiag {nb} chains m={m}: max|d alpha,beta|[:8]/scale = "
+        f"{err_ab:.3e} (tol 5e-5); max|dG(iw)| from {m_g} steps = "
+        f"{err_g:.3e} (tol 2e-5); from all {m} steps {err_g200:.3e} "
+        f"(random starts, not gated)")
+    if not (err_ab <= 5e-5 and err_g <= 2e-5):
+        raise AssertionError("B4 kernel disagrees with its plain version")
+    # the main path's own chain: c^+_up |GS> into the (7,6) sector, its
+    # G(iw) with poles shifted by E0 as the solver forms them (printed)
+    g_k, g_p = _physical_gf_chain(v_gs, e0, m, g_cf)
+    say(f"B4 on c+|GS> in ({HALF + 1},{HALF}), m={m}: max|dG(iw)| = "
+        f"{np.abs(g_k - g_p).max():.3e}, max|G| = {np.abs(g_p).max():.3e}")
+    ms_k = cuda_ms(lambda: bc.gf_tridiag_call(op, vb, m)) / m
+    ms_p = cuda_ms(lambda: bc.gf_tridiag_batch_plain(pop, vb, m)) / m
+    rows.append(("gf_tridiag", err_ab, ms_k, ms_p))
+    for name, _, ms_k, ms_p in rows:
+        say(f"  {name:10s} per step: kernel {ms_k:.4f} ms, plain "
+            f"{ms_p:.4f} ms")
+    return rows
+
+
+def phase3(cfg, sec, op, e0):
+    import torch
+    from dmft_lanc_ed_tpu_torch.diag import _blocksparse_ground_state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evals, evecs = _blocksparse_ground_state(cfg, op, sec.dim, 1, ncv=48)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    de = abs(float(evals[0]) - e0)
+    say(f"phase 3: two-stage Egs = {evals[0]:+.12f}, |dE| vs ARPACK = "
+        f"{de:.3e} (gate 1e-10), {dt:.2f} s")
+    if not (de <= 1e-10 and np.all(np.isfinite(evecs))):
+        raise AssertionError("two-stage ground state misses the gate")
+    return float(evals[0]), dt
+
+
+def phase4(e_gs):
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.models.hm_bethe import run_dmft
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    cfg = pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,), beta=100.0,
+                      lmats=1024, lfit=256, lreal=64, nloop=2,
+                      ed_backend="pallas", ed_batch_sectors=False,
+                      ed_sectors=True)
+    bc.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_dmft(cfg, device=DEVICE, verbose=False)
+    counts = dict(bc.launch_counts)
+    say(f"phase 4: run_dmft nbath={NBATH}, {res.iterations} loops in "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    for ent in res.history:
+        say(f"  loop {ent['iloop']}: diag {ent['diag']:.2f} s, gf "
+            f"{ent['gf']:.2f} s, fit {ent['fit']:.2f} s, Egs "
+            f"{ent['egs']:+.12f}, dens {ent['dens']}, docc {ent['docc']}, "
+            f"gf routing {ent['routing'][0]} via chain kernel, "
+            f"{ent['routing'][1]} via scan")
+    if any(v <= 0 for v in counts.values()):
+        raise AssertionError(f"a chain kernel never launched: {counts}")
+    outs = [res.sigma_mats, res.sigma_real, res.g_mats, res.weiss, res.bath,
+            res.dens, res.docc]
+    if not all(np.all(np.isfinite(x)) for x in outs):
+        raise AssertionError("non-finite DMFT output")
+    if not np.all((res.dens >= 0) & (res.dens <= 2)):
+        raise AssertionError(f"dens out of range: {res.dens}")
+    egs1 = res.history[0]["egs"]
+    if e_gs is None:
+        say("  loop 1 Egs not checked (phase 3 not run)")
+        return counts
+    say(f"  loop 1 Egs {egs1:+.12f} vs phase 3 {e_gs:+.12f}: "
+        f"|d| = {abs(egs1 - e_gs):.3e} (tol 1e-9)")
+    if not abs(egs1 - e_gs) <= 1e-9:
+        raise AssertionError("loop 1 ground state differs from phase 3")
+    return counts
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="0,1,2,3,4")
+    phases = {int(p) for p in ap.parse_args().phases.split(",")}
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "dmft_lanc_ed_tpu_torch")):
+        print("chip_smoke: the dmft_lanc_ed_tpu_torch package is not next "
+              "to this script", file=sys.stderr)
+        return 3
+    sys.path.insert(0, ROOT)
+    try:
+        phase0()
+        if 1 in phases:
+            phase1()
+        rows, counts = [], {}
+        e_gs = None
+        if phases & {2, 3}:
+            cfg, sec, h, op = sector_854k()
+            e0, v_gs = host_ground_state(h, sec)
+            if 2 in phases:
+                rows = phase2(op, e0, v_gs)
+            if 3 in phases:
+                e_gs, _ = phase3(cfg, sec, op, e0)
+            del op
+        if 4 in phases:
+            counts = phase4(e_gs)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    if "jax" in sys.modules or "dmft_lanc_ed_tpu" in sys.modules:
+        print("chip_smoke: the JAX package was imported", file=sys.stderr)
+        return 1
+    say(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name], "launches": counts.get(name, 0),
+         "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+        for name, err, ms_k, ms_p in rows]}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

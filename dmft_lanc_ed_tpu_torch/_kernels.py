@@ -1,0 +1,88 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, at first use, into this package's build directory
+(``_build/``, git-ignored), and bound with ctypes: every pointer and the
+stream are ``c_void_p``, every entry point returns ``cudaGetLastError()``
+and :func:`check` raises on anything but 0. The library file name carries
+a hash of the sources, so an edited source rebuilds.
+
+Nothing here runs at import: :func:`lib` builds on its first call, which
+only a kernel wrapper handed a CUDA tensor makes.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Optional
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    path = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    path = path if path and os.path.exists(path) else shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return path
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` if the hashed library is missing; returns its
+    path. Raises with nvcc's output when the build fails."""
+    srcs = _sources()
+    digest = hashlib.sha256()
+    for p in srcs:
+        with open(p, "rb") as fh:
+            digest.update(fh.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    so = os.path.join(BUILD_DIR, f"libbs_chain-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cus = [p for p in srcs if p.endswith(".cu")]
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}"
+                           f"\n{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        cdll = ctypes.CDLL(build())
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        cdll.bs_chain_nblk.restype = i32
+        cdll.bs_chain_nblk.argtypes = [i32, i32]
+        cdll.bs_tridiag_chain.restype = i32
+        cdll.bs_tridiag_chain.argtypes = [vp] * 9 + [i32] * 9 + [vp]
+        cdll.bs_cheb_chain.restype = i32
+        cdll.bs_cheb_chain.argtypes = [vp] * 8 + [f32, f32] + [i32] * 8 + [vp]
+        _LIB = cdll
+    return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: cudaError_t {err}")

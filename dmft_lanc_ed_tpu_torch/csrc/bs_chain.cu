@@ -1,0 +1,387 @@
+// Band-sparse Krylov chain kernels for Hopper (sm_90a), FP32 FMA.
+//
+// Replaces the TPU's Pallas chain kernels of dmft_lanc_ed_tpu/ops/bs_chain.py:
+//   B2  _tridiag_kernel     -> bs_tridiag_chain (one chain)
+//   B3  _cheb_kernel        -> bs_cheb_chain
+//   B4  _gf_tridiag_kernel  -> bs_tridiag_chain (a batch of chains, the
+//                              chain index is grid dimension z)
+//
+// What they compute, on the RCM-permuted sector vector padded to multiples
+// of 128, u[ddp, dup] (f32):
+//   H u = (A B) o u + H_dw,p u + u H_up,p
+// with the separable diagonal A[ddp, R] B[R, dup], the dw hops as banded row
+// slabs dw[ntd, 128, W_dw] (panel i of rows times a window of W_dw rows of u
+// starting at tile clamp(i - d_dw, 0, (ddp - W_dw)/128)), and the up hops as
+// banded column slabs up[ntu, W_up, 128] (a lane window of u starting at
+// clamp((j - d_up) * 128, 0, dup - W_up) times column panel j's slab). The
+// window clamps are those of bs_chain.py:138 and :163.
+//
+// B2/B4 run K plain Lanczos steps (no reorthogonalization) with lazy
+// normalization: vectors are stored unnormalized and their inverse norms
+// ride as scalars. One step is
+//   pass 0:  y = s_cur H u_cur - coup u_prv   -> plane prv, partials <u_cur,y>
+//   finish:  alpha = s_cur <u_cur, y>,  co = alpha s_cur
+//   pass 1:  w = y - co u_cur                  -> plane prv, partials |w|^2
+//   finish:  beta = |w|, coup = beta s_cur, s_cur = 1/beta (0 at breakdown)
+// B3 runs K scaled-Chebyshev steps T_K((H - c)/e) v in one pass each,
+//   r = fac (H u_cur - c u_cur) - s_cur s_prv u_prv,  fac = (1 or 2)/e s_cur,
+// normalized every step the same lazy way (T_K grows like cosh(K ...), an
+// unnormalized f32 chain overflows).
+//
+// Hopper runs blocks in no order, so the TPU kernel's sequential grid with
+// its sums carried in SMEM becomes separate launches: every step is a few
+// kernels launched back to back on one stream, the host never synchronizes
+// inside a chain, and each cross-block sum is reduced by a one-block finish
+// kernel in a fixed order (no float atomics), so reruns are bit-identical.
+// The scalar state lives in a small device buffer.
+//
+// What bounds it. At the 854k-state (6,6) sector of nbath = 11
+// (ddp = dup = 1024, W_dw = W_up = 640), one H u is 2 * 1024^2 * 1280 =
+// 2.7 GFLOP of banded f32 product (1.34 dw + 1.34 up). The two vector
+// planes (8 MB) and the f32 slabs (5.2 MB) fit in the 50 MB L2 of an H100
+// (NVIDIA data sheet), so a step is bound by FP32 operations, not device
+// memory. The design answers
+// that with a plain shared-memory-tiled FP32 FMA product (64 x 64 output
+// tile per block, 4 x 4 outputs per thread, f32 accumulation over the f32
+// slabs): the same products as the TPU kernels at full f32 fidelity, which
+// meets B4's ~1e-7 contract and therefore B2/B3's split-bf16 ~1.5e-5 one.
+// Tensor cores (3xTF32 or wgmma) and the zero-tile trim are later work.
+//
+// Every entry point returns cudaGetLastError() of its launches (0 = ok).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 64;        // output rows per block
+constexpr int BN = 64;        // output columns per block
+constexpr int BK = 16;        // contraction depth per shared-memory stage
+constexpr int NT = 256;       // threads per block (16 x 16, 4 x 4 outputs each)
+constexpr int FIN_NT = 256;   // threads of a finish kernel
+
+// per-chain scalar state (double)
+constexpr int S_CUR = 0;      // inverse norm of the vector in plane cur
+constexpr int COUP = 1;       // coefficient of u_prv (tridiag)
+constexpr int CO = 2;         // coefficient of u_cur in pass 1 (tridiag)
+constexpr int S_PRV = 3;      // inverse norm of the vector in plane prv (cheb)
+constexpr int NSTATE = 4;
+
+struct Geo {
+  int ddp, dup, rank, w_dw, d_dw, w_up, d_up;
+};
+
+// acc[4][4] += A[BM x K] * B[K x BN], both row-major (lda, ldb in floats).
+// Every row start and every k0 is a multiple of 4 floats, so the global
+// reads are float4.
+__device__ __forceinline__ void gemm_acc(float acc[4][4],
+                                         const float* __restrict__ A, int lda,
+                                         const float* __restrict__ B, int ldb,
+                                         int K, float (*As)[BM],
+                                         float (*Bs)[BN]) {
+  const int t = threadIdx.x;
+  const int ty = t / 16, tx = t % 16;
+  const int am = t / 4, ak = (t % 4) * 4;     // A tile: 64 rows x 16 k
+  const int bk = t / 16, bn = (t % 16) * 4;   // B tile: 16 k x 64 columns
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    const float4 a = *reinterpret_cast<const float4*>(
+        A + (size_t)am * lda + k0 + ak);
+    const float4 b = *reinterpret_cast<const float4*>(
+        B + (size_t)(k0 + bk) * ldb + bn);
+    As[ak + 0][am] = a.x;
+    As[ak + 1][am] = a.y;
+    As[ak + 2][am] = a.z;
+    As[ak + 3][am] = a.w;
+    *reinterpret_cast<float4*>(&Bs[bk][bn]) = b;
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// The shared panel apply: acc = (H_p u)[r0:r0+64, c0:c0+64] without the
+// diagonal term (added in the epilogue, where u is read anyway).
+__device__ __forceinline__ void hop_tile(float acc[4][4],
+                                         const float* __restrict__ dw,
+                                         const float* __restrict__ up,
+                                         const float* __restrict__ u,
+                                         const Geo& g, int r0, int c0) {
+  __shared__ __align__(16) float As[BK][BM];
+  __shared__ __align__(16) float Bs[BK][BN];
+  const int i = r0 / 128, j = c0 / 128;
+  const int base = min(max(i - g.d_dw, 0), (g.ddp - g.w_dw) / 128) * 128;
+  const int s_up = min(max((j - g.d_up) * 128, 0), g.dup - g.w_up);
+  // dw hops: dw slab rows [64 x W_dw] times u rows base..base+W_dw
+  gemm_acc(acc, dw + ((size_t)i * 128 + (r0 % 128)) * g.w_dw, g.w_dw,
+           u + (size_t)base * g.dup + c0, g.dup, g.w_dw, As, Bs);
+  // up hops: u lane window [64 x W_up] times up slab j columns
+  gemm_acc(acc, u + (size_t)r0 * g.dup + s_up, g.dup,
+           up + (size_t)j * g.w_up * 128 + (c0 % 128), 128, g.w_up, As, Bs);
+}
+
+// separable diagonal (A B)[r, c..c+3]
+__device__ __forceinline__ void diag4(float d[4],
+                                      const float* __restrict__ da,
+                                      const float* __restrict__ db,
+                                      const Geo& g, int r, int c) {
+  d[0] = d[1] = d[2] = d[3] = 0.f;
+  for (int q = 0; q < g.rank; ++q) {
+    const float a = da[(size_t)r * g.rank + q];
+    const float4 b = *reinterpret_cast<const float4*>(db + (size_t)q * g.dup + c);
+    d[0] = fmaf(a, b.x, d[0]);
+    d[1] = fmaf(a, b.y, d[1]);
+    d[2] = fmaf(a, b.z, d[2]);
+    d[3] = fmaf(a, b.w, d[3]);
+  }
+}
+
+// block sum of one double per thread, written by thread 0 to *out
+__device__ __forceinline__ void block_sum_store(double v, double* out) {
+  __shared__ double red[NT];
+  red[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *out = red[0];
+}
+
+// MODE 0: Lanczos pass 0 (partials of <u_cur, y>);
+// MODE 1: Chebyshev step (partials of |r|^2).
+template <int MODE>
+__global__ void __launch_bounds__(NT)
+panel_step(const float* __restrict__ dw, const float* __restrict__ up,
+           const float* __restrict__ da, const float* __restrict__ db,
+           float* __restrict__ planes, const double* __restrict__ state,
+           double* __restrict__ partials, Geo g, int cur, float c,
+           float inv_e, int k) {
+  const int b = blockIdx.z;
+  const size_t plane = (size_t)g.ddp * g.dup;
+  const float* u = planes + ((size_t)b * 2 + cur) * plane;
+  float* p = planes + ((size_t)b * 2 + (1 - cur)) * plane;
+  const double* st = state + (size_t)b * NSTATE;
+  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  hop_tile(acc, dw, up, u, g, r0, c0);
+
+  float f_cur, f_prv, f_c = 0.f;
+  if (MODE == 0) {
+    f_cur = (float)st[S_CUR];                       // y = s_cur Hu - coup u_prv
+    f_prv = (float)st[COUP];
+  } else {
+    const double fac = (k == 0 ? (double)inv_e : 2.0 * (double)inv_e)
+                       * st[S_CUR];
+    f_cur = (float)fac;                             // r = fac (Hu - c u)
+    f_prv = (float)(st[S_CUR] * st[S_PRV]);         //     - s_cur s_prv u_prv
+    f_c = c;
+  }
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int c4 = c0 + tx * 4;
+  double part = 0.0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    const size_t off = (size_t)r * g.dup + c4;
+    const float4 uc = *reinterpret_cast<const float4*>(u + off);
+    const float4 uq = *reinterpret_cast<const float4*>(p + off);
+    float d[4];
+    diag4(d, da, db, g, r, c4);
+    const float ucv[4] = {uc.x, uc.y, uc.z, uc.w};
+    const float uqv[4] = {uq.x, uq.y, uq.z, uq.w};
+    float y[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float hu = fmaf(d[j], ucv[j], acc[i][j]);
+      if (MODE == 0) {
+        y[j] = f_cur * hu - f_prv * uqv[j];
+        part += (double)ucv[j] * (double)y[j];
+      } else {
+        y[j] = f_cur * (hu - f_c * ucv[j]) - f_prv * uqv[j];
+        part += (double)y[j] * (double)y[j];
+      }
+    }
+    *reinterpret_cast<float4*>(p + off) = make_float4(y[0], y[1], y[2], y[3]);
+  }
+  const int nblk = gridDim.x * gridDim.y;
+  block_sum_store(part, partials + (size_t)b * nblk
+                        + blockIdx.y * gridDim.x + blockIdx.x);
+}
+
+// Lanczos pass 1: w = y - co u_cur in plane prv, partials of |w|^2
+__global__ void __launch_bounds__(NT)
+tridiag_pass1(float* __restrict__ planes, const double* __restrict__ state,
+              double* __restrict__ partials, Geo g, int cur) {
+  const int b = blockIdx.z;
+  const size_t plane = (size_t)g.ddp * g.dup;
+  const float* u = planes + ((size_t)b * 2 + cur) * plane;
+  float* p = planes + ((size_t)b * 2 + (1 - cur)) * plane;
+  const float co = (float)state[(size_t)b * NSTATE + CO];
+  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  double part = 0.0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const size_t off = (size_t)(r0 + ty * 4 + i) * g.dup + c0 + tx * 4;
+    const float4 uc = *reinterpret_cast<const float4*>(u + off);
+    float4 w = *reinterpret_cast<const float4*>(p + off);
+    w.x -= co * uc.x;
+    w.y -= co * uc.y;
+    w.z -= co * uc.z;
+    w.w -= co * uc.w;
+    part += (double)w.x * w.x + (double)w.y * w.y + (double)w.z * w.z
+            + (double)w.w * w.w;
+    *reinterpret_cast<float4*>(p + off) = w;
+  }
+  const int nblk = gridDim.x * gridDim.y;
+  block_sum_store(part, partials + (size_t)b * nblk
+                        + blockIdx.y * gridDim.x + blockIdx.x);
+}
+
+// fixed-order sum of one chain's partials (block b = chain b)
+__device__ __forceinline__ double chain_sum(const double* __restrict__ partials,
+                                            int nblk) {
+  __shared__ double red[FIN_NT];
+  const double* pb = partials + (size_t)blockIdx.x * nblk;
+  double s = 0.0;
+  for (int q = threadIdx.x; q < nblk; q += FIN_NT) s += pb[q];
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int h = FIN_NT / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+    __syncthreads();
+  }
+  return red[0];
+}
+
+__global__ void finish_alpha(const double* __restrict__ partials, int nblk,
+                             double* __restrict__ state,
+                             double* __restrict__ alphas, int kk, int k) {
+  const double dot = chain_sum(partials, nblk);
+  if (threadIdx.x == 0) {
+    double* st = state + (size_t)blockIdx.x * NSTATE;
+    const double alpha = st[S_CUR] * dot;
+    alphas[(size_t)blockIdx.x * kk + k] = alpha;
+    st[CO] = alpha * st[S_CUR];
+  }
+}
+
+__global__ void finish_beta(const double* __restrict__ partials, int nblk,
+                            double* __restrict__ state,
+                            double* __restrict__ betas, int kk, int k) {
+  const double ss = chain_sum(partials, nblk);
+  if (threadIdx.x == 0) {
+    double* st = state + (size_t)blockIdx.x * NSTATE;
+    const double beta = sqrt(ss);
+    betas[(size_t)blockIdx.x * kk + k] = beta;
+    st[COUP] = beta * st[S_CUR];
+    st[S_CUR] = beta > 1e-30 ? 1.0 / beta : 0.0;
+  }
+}
+
+__global__ void finish_cheb(const double* __restrict__ partials, int nblk,
+                            double* __restrict__ state,
+                            double* __restrict__ norm_out) {
+  const double ss = chain_sum(partials, nblk);
+  if (threadIdx.x == 0) {
+    double* st = state + (size_t)blockIdx.x * NSTATE;
+    const double nrm = sqrt(ss);
+    st[S_PRV] = st[S_CUR];
+    st[S_CUR] = nrm > 1e-30 ? 1.0 / nrm : 0.0;
+    norm_out[blockIdx.x] = nrm;
+  }
+}
+
+bool geo_ok(const Geo& g) {
+  return g.ddp > 0 && g.dup > 0 && g.ddp % 128 == 0 && g.dup % 128 == 0
+         && g.w_dw % 128 == 0 && g.w_up % 128 == 0 && g.w_dw > 0
+         && g.w_up > 0 && g.w_dw <= g.ddp && g.w_up <= g.dup && g.rank > 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// number of per-chain partial sums a step writes (size of `partials` / nb)
+int bs_chain_nblk(int ddp, int dup) { return (ddp / BM) * (dup / BN); }
+
+// K Lanczos steps for nb independent chains (B2: nb = 1; B4: a batch).
+// planes [nb, 2, ddp, dup] f32: plane 0 holds the normalized start vector,
+// plane 1 zeros; state [nb, 4] f64 = {1, 0, 0, 0}; partials [nb, nblk] f64;
+// alphas, betas [nb, kk] f64.
+int bs_tridiag_chain(const void* dw, const void* up, const void* da,
+                     const void* db, void* planes, void* state,
+                     void* partials, void* alphas, void* betas, int nb,
+                     int ddp, int dup, int rank, int w_dw, int d_dw, int w_up,
+                     int d_up, int kk, void* stream) {
+  const Geo g{ddp, dup, rank, w_dw, d_dw, w_up, d_up};
+  if (!geo_ok(g) || nb <= 0 || nb > 65535 || kk <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(dup / BN, ddp / BM, nb);
+  const int nblk = bs_chain_nblk(ddp, dup);
+  auto* pl = static_cast<float*>(planes);
+  auto* st = static_cast<double*>(state);
+  auto* pa = static_cast<double*>(partials);
+  for (int k = 0; k < kk; ++k) {
+    const int cur = k % 2;
+    panel_step<0><<<grid, NT, 0, s>>>(
+        static_cast<const float*>(dw), static_cast<const float*>(up),
+        static_cast<const float*>(da), static_cast<const float*>(db), pl, st,
+        pa, g, cur, 0.f, 0.f, k);
+    finish_alpha<<<nb, FIN_NT, 0, s>>>(pa, nblk, st,
+                                       static_cast<double*>(alphas), kk, k);
+    tridiag_pass1<<<grid, NT, 0, s>>>(pl, st, pa, g, cur);
+    finish_beta<<<nb, FIN_NT, 0, s>>>(pa, nblk, st,
+                                      static_cast<double*>(betas), kk, k);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K scaled-Chebyshev steps of one chain (B3). planes [2, ddp, dup] f32 as
+// above, state [4] f64 = {1, 0, 0, 0}; norm_out [1] f64 receives the last
+// step's norm. The filtered (unnormalized) vector ends in plane kk % 2.
+int bs_cheb_chain(const void* dw, const void* up, const void* da,
+                  const void* db, void* planes, void* state, void* partials,
+                  void* norm_out, float c, float inv_e, int ddp, int dup,
+                  int rank, int w_dw, int d_dw, int w_up, int d_up, int kk,
+                  void* stream) {
+  const Geo g{ddp, dup, rank, w_dw, d_dw, w_up, d_up};
+  if (!geo_ok(g) || kk <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(dup / BN, ddp / BM, 1);
+  const int nblk = bs_chain_nblk(ddp, dup);
+  auto* pl = static_cast<float*>(planes);
+  auto* st = static_cast<double*>(state);
+  auto* pa = static_cast<double*>(partials);
+  for (int k = 0; k < kk; ++k) {
+    panel_step<1><<<grid, NT, 0, s>>>(
+        static_cast<const float*>(dw), static_cast<const float*>(up),
+        static_cast<const float*>(da), static_cast<const float*>(db), pl, st,
+        pa, g, k % 2, c, inv_e, k);
+    finish_cheb<<<1, FIN_NT, 0, s>>>(pa, nblk, st,
+                                     static_cast<double*>(norm_out));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,267 @@
+"""Sector-scan diagonalization driver (port of ``dmft_lanc_ed_tpu/diag.py``).
+
+Replacement of ED_DIAG.f90 (`diagonalize_impurity` / `ed_diag_d`): scans the
+(Nup, Ndw) sectors serially, runs host LAPACK for dimensions up to
+`lanc_dim_threshold` and a Krylov solve above it, and collects states into a
+:class:`~.eigenspace.StateList`: the T=0 ground-state window (gs_threshold
+semantics, ED_DIAG.f90:251-263) or the capacity-limited finite-T list, with
+`ed_post_diag`-style adaptation (ED_DIAG.f90:471-605).
+
+Band-sparse sectors (ed_backend "pallas") take the two-stage solve of
+:func:`_blocksparse_ground_state`: a seed from the B2/B3 chain kernels, then
+an f64 polish (and, if needed, a mixed-precision Lanczos top-off).
+
+Not ported yet, and raising: ``ed_batch_sectors=True`` (ops/batched.py,
+ROADMAP A3), the per-call matvec path of sectors without the chain (B1),
+``ed_diag_type="full"``, ``lanc_method="dvdson"`` and a device mesh.
+"""
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .bath import Bath
+from .config import EDConfig
+from .eigenspace import EigenState, StateList
+from .hamiltonian import build_sector_hamiltonian, dense_hamiltonian
+from .ops.blocksparse import (BlockSparseSectorOp, from_padded,
+                              matvec_bs_exact_padded, matvec_bs_mixed_padded)
+from .ops.bs_chain import _K_BUCKETS, chain_applicable, ground_state_seed
+from .ops.factory import (apply_is_exact, exact_apply, make_sector_op,
+                          resolve_backend, resolve_precision)
+from .ops.lanczos import lanczos_ground_state, refine_eigenpairs
+from .sectors import SectorQN, SectorTable
+
+log = logging.getLogger("dmft_lanc_ed_tpu_torch")
+
+
+def _lanc_tol(cfg: EDConfig, device) -> float:
+    """Krylov residual tolerance honoring the matvec noise floor: mixed
+    matvecs carry ~1e-7 relative error, below which the residual
+    stagnates; the f64 Rayleigh-Ritz polish recovers the rest."""
+    floor = {"f64": 1e-14, "mixed": 3e-6}
+    backend = resolve_backend(cfg, device)
+    if backend == "pallas":
+        prec = "mixed"
+    elif backend == "dense":
+        prec = resolve_precision(cfg, device)
+    else:
+        prec = "f64"
+    return max(cfg.lanc_tolerance, floor[prec])
+
+
+@dataclass
+class DiagState:
+    """Cross-iteration diagonalization control state (neigen adaptation)."""
+    neigen_sector: Dict[SectorQN, int] = field(default_factory=dict)
+    lanc_nstates_total: int = 1
+    sector_hint: Optional[List[SectorQN]] = None   # restart restriction
+
+
+def _scan_sectors(cfg: EDConfig, table: SectorTable,
+                  ctl: DiagState) -> List[SectorQN]:
+    qns = table.all_qns()
+    if cfg.ed_twin:
+        qns = [s for s in qns if all(u >= d for u, d in zip(s[0], s[1]))]
+    if cfg.ed_sectors and ctl.sector_hint:
+        shift = cfg.ed_sectors_shift
+        keep = []
+        for s in qns:
+            for h in ctl.sector_hint:
+                if (max(abs(a - b) for a, b in zip(s[0], h[0])) <= shift and
+                        max(abs(a - b) for a, b in zip(s[1], h[1])) <= shift):
+                    keep.append(s)
+                    break
+        qns = keep
+    return qns
+
+
+def _sector_neigen(cfg: EDConfig, ctl: DiagState, sqn, dim: int) -> int:
+    if cfg.finite_t:
+        return min(dim, ctl.neigen_sector.get(sqn, cfg.lanc_nstates_sector))
+    return min(dim, cfg.lanc_nstates_sector)
+
+
+def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
+                              ncv: int, use_chain: Optional[bool] = None):
+    """Two-stage ground-state path of the band-sparse backend.
+
+    Stage 1: the chain kernels (ops/bs_chain.py) — a B2 Lanczos
+    tridiagonalization gives the Ritz bounds, a B3 Chebyshev filter
+    bootstrapped from them gives the seed. Stage 2: with a good seed and
+    one wanted state, the f64 Rayleigh-Ritz polish alone (a few guarded
+    calls); otherwise a mixed-precision Lanczos top-off seeded with it plus
+    the polish. Everything runs in the permuted padded space; the final
+    vectors return to the natural order once. Returns (values host f64,
+    vectors [k, dim] host f64)."""
+    pop = op.pop
+    pshape = pop.padded_shape
+
+    def unpad_all(vals, vecs_p):
+        """Padded Ritz vectors -> natural flat, renormalized (pad weight
+        is ~0: the pad block is exactly decoupled and +PAD_SHIFT away)."""
+        vecs_p = torch.as_tensor(vecs_p, device=op.device).reshape(
+            (-1,) + pshape)
+        vn = from_padded(op, vecs_p, torch.float64).reshape(len(vecs_p), -1)
+        vn = vn / torch.linalg.vector_norm(vn, dim=1, keepdim=True)
+        return np.asarray(vals), vn.cpu().numpy()
+
+    if use_chain is None:
+        use_chain = chain_applicable(op)
+    if not use_chain:
+        raise NotImplementedError(
+            "band-sparse sector without the chain path needs the per-call "
+            "matvec kernel B1, not ported yet (ROADMAP B1)")
+    theta0, seed_p, eta = ground_state_seed(
+        op, m_tri=96, m_cheb=min(2 * max(ncv, 64), _K_BUCKETS[-1]),
+        return_padded=True)
+    seed = seed_p.double()
+    seed = seed / torch.linalg.vector_norm(seed)
+    if neigen == 1 and eta <= 3e-3:
+        # with a seed this good the f64 polish alone reaches f64 (its
+        # per-call error contraction is ~500x); on persistent failure fall
+        # through to the full top-off with the best vector found
+        for _ in range(3):
+            vals, vecs = refine_eigenpairs(pop, matvec_bs_exact_padded,
+                                           seed[None])
+            r = matvec_bs_exact_padded(pop, vecs[0]) - vals[0] * vecs[0]
+            seed = vecs[0]
+            if float(torch.linalg.vector_norm(r)) <= 1e-7 * max(
+                    1.0, abs(vals[0])):
+                return unpad_all(vals, vecs)
+    vals, vecs_p = lanczos_ground_state(
+        pop, matvec_bs_mixed_padded, pop.dim, neigen, ncv=ncv,
+        tol=max(_lanc_tol(cfg, op.device), 3e-6), dtype=torch.float64,
+        v0=seed, vshape=pshape, polish_apply=matvec_bs_exact_padded)
+    return unpad_all(vals, vecs_p)
+
+
+def _check_ported(cfg: EDConfig) -> None:
+    if cfg.ed_diag_type == "full":
+        raise NotImplementedError("ed_diag_type='full' is not ported yet "
+                                  "(ROADMAP A6)")
+    if cfg.ed_batch_sectors:
+        raise NotImplementedError(
+            "ed_batch_sectors=True needs ops/batched.py, not ported yet "
+            "(ROADMAP A3); run with ed_batch_sectors=False")
+    if cfg.lanc_method == "dvdson":
+        raise NotImplementedError("lanc_method='dvdson' is not ported yet "
+                                  "(ROADMAP A5)")
+    if cfg.mesh_shape:
+        raise NotImplementedError("a device mesh is not ported yet "
+                                  "(ROADMAP A10)")
+
+
+def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
+                         bath: Bath, ctl: Optional[DiagState] = None,
+                         device="cpu",
+                         h_basis: Optional[np.ndarray] = None) -> StateList:
+    """One full spectrum determination (diagonalize_impurity, ED_DIAG.f90:22)."""
+    _check_ported(cfg)
+    device = torch.device(device)
+    ctl = ctl or DiagState(lanc_nstates_total=cfg.lanc_nstates_total)
+    finite_t = cfg.finite_t
+    state_list = StateList(
+        max_size=ctl.lanc_nstates_total if finite_t else None)
+
+    oldzero = np.inf
+    diag_log = []
+    sector_tops = []
+    for sqn in _scan_sectors(cfg, table, ctl):
+        dim = table.dim(sqn)
+        neigen = _sector_neigen(cfg, ctl, sqn, dim)
+        sec = table.sector(sqn)
+
+        lanc_solve = dim > max(cfg.lanc_dim_threshold, neigen)
+        if lanc_solve:
+            op, op_apply = make_sector_op(cfg, sec, hloc, bath, device,
+                                          h_basis=h_basis)
+            ncv = min(dim, cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add)
+            ncv = max(ncv, 2 * neigen + 16)
+            if isinstance(op, BlockSparseSectorOp):
+                evals, evecs = _blocksparse_ground_state(
+                    cfg, op, dim, neigen, min(ncv, dim))
+            else:
+                polish = None if apply_is_exact(op_apply) else exact_apply(op)
+                evals, evecs = lanczos_ground_state(
+                    op, op_apply, dim, neigen, ncv=min(ncv, dim),
+                    tol=_lanc_tol(cfg, device), dtype=torch.float64,
+                    polish_apply=polish)
+        else:
+            h = build_sector_hamiltonian(cfg, sec, hloc, bath,
+                                         h_basis=h_basis)
+            w, v = np.linalg.eigh(dense_hamiltonian(h))
+            evals, evecs = w[:neigen], v[:, :neigen].T
+
+        diag_log.append((sqn, np.asarray(evals).copy(), lanc_solve))
+        sector_tops.append((sqn, float(np.max(evals)) if len(evals) else
+                            -np.inf, len(evals) >= dim))
+        # twin reconstruction: the spin-flipped sector's eigenvector is the
+        # [dw, up] transpose of this one
+        twin_qn = table.twin(sqn) if cfg.ed_twin and sqn != table.twin(sqn) \
+            else None
+
+        def twin_vec(vec_flat):
+            v3 = vec_flat.reshape(sec.dim_ph, sec.dim_dw, sec.dim_up)
+            return np.ascontiguousarray(np.swapaxes(v3, 1, 2)).reshape(-1)
+
+        for k in range(len(evals)):
+            e = float(evals[k])
+            vec = np.asarray(evecs[k], np.float64)
+            adds = [(sqn, vec)]
+            if twin_qn is not None:
+                adds.append((twin_qn, twin_vec(vec)))
+            for qn_i, vec_i in adds:
+                if finite_t:
+                    state_list.add(EigenState(qn_i, e, vec_i,
+                                              twin=qn_i != sqn))
+                elif e < oldzero - 10.0 * cfg.gs_threshold:
+                    # T=0 ground-state window (ED_DIAG.f90:251-263)
+                    oldzero = e
+                    state_list = StateList(max_size=None)
+                    state_list.add(EigenState(qn_i, e, vec_i,
+                                              twin=qn_i != sqn))
+                elif abs(e - oldzero) <= cfg.gs_threshold:
+                    oldzero = min(oldzero, e)
+                    state_list.add(EigenState(qn_i, e, vec_i,
+                                              twin=qn_i != sqn))
+    state_list.diag_log = diag_log
+    if finite_t and state_list.size:
+        tol = 1e-8 * max(1.0, state_list.emax - state_list.emin)
+        unclean = [sqn for sqn, top, full in sector_tops
+                   if not full and top < state_list.emax - tol]
+        state_list.clean_cut = not unclean
+        if unclean:
+            log.info("diag: state list is not a clean energy cut (sectors "
+                     "%s top out below emax)", unclean[:4])
+    _post_diag(cfg, state_list, ctl)
+    return state_list
+
+
+def _post_diag(cfg: EDConfig, state_list: StateList, ctl: DiagState) -> None:
+    """Adaptive spectrum sizing (ed_post_diag, ED_DIAG.f90:471-605)."""
+    if not cfg.finite_t or state_list.size == 0:
+        if not cfg.finite_t:
+            ctl.sector_hint = state_list.sectors_contributing()
+        return
+    counts: Dict[SectorQN, int] = {}
+    for s in state_list.states:
+        counts[s.qn] = counts.get(s.qn, 0) + 1
+    for sqn, c in counts.items():
+        ctl.neigen_sector[sqn] = c + 1
+    egs, emax = state_list.emin, state_list.emax
+    tail = np.exp(-cfg.beta * (emax - egs))
+    if tail > cfg.cutoff and state_list.max_size is not None \
+            and state_list.size >= state_list.max_size:
+        ctl.lanc_nstates_total += cfg.lanc_nstates_step
+        log.info("post_diag: growing lanc_nstates_total -> %d (tail %.2e)",
+                 ctl.lanc_nstates_total, tail)
+    elif tail < cfg.cutoff and state_list.size > 2 * cfg.lanc_nstates_step:
+        e_cut = egs - np.log(cfg.cutoff) / cfg.beta
+        keep = [s for s in state_list.states if s.e <= e_cut]
+        if len(keep) < state_list.size:
+            ctl.lanc_nstates_total = max(len(keep), 1)

@@ -1,0 +1,171 @@
+"""Chi^2 bath fitting, normal bath (port of ``dmft_lanc_ed_tpu/fit.py``;
+reference ED_FIT_CHI2.f90 + fitgf_normal_normal.f90).
+
+The exact gradient of
+
+    chi2(theta) = (1/Lfit) sum_n |F(iw_n) - F_And(iw_n; theta)|^cg_pow / W_n
+
+comes from torch autograd on complex128 CPU tensors and feeds
+``scipy.optimize.minimize`` with the reference's method and option mapping
+(L-BFGS-B or CG, cg_grad, cg_stop/cg_ftol). The fit runs on the host
+because the JAX package pins it there (``@on_host``): it is a few hundred
+tiny evaluations, latency-bound. Weight W_n = 1, n, or w_n per cg_weight;
+cg_scheme "delta" fits Delta(z), "weiss" fits G0and(z). One independent
+fit per (spin, orbital) over (e_k, V_k). Hybrid and replica baths are not
+ported (ROADMAP A7).
+"""
+from __future__ import annotations
+
+import os
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+from scipy.optimize import minimize as _scipy_minimize
+
+from .bath import Bath, _require_normal, pack_bath, unpack_bath
+from .config import EDConfig
+from .solver import matsubara_grid
+
+
+def _cabs_pow(x: torch.Tensor, p: int) -> torch.Tensor:
+    """|x|^p for complex x, differentiable at 0 for even p."""
+    a2 = x.real ** 2 + x.imag ** 2
+    return a2 if p == 2 else a2 ** (p / 2.0)
+
+
+def _fit_weight(cfg: EDConfig, wm: np.ndarray) -> np.ndarray:
+    if cfg.cg_weight == 2:
+        return np.arange(1, len(wm) + 1, dtype=np.float64)
+    if cfg.cg_weight == 3:
+        return wm.copy()
+    return np.ones(len(wm))
+
+
+def chi2_normal(cfg: EDConfig, theta: torch.Tensor, z: torch.Tensor,
+                target: torch.Tensor, wgt: torch.Tensor, h_aa: float
+                ) -> torch.Tensor:
+    """chi2 of one (spin, orbital) normal-bath fit; theta = [e_k, V_k]."""
+    ek = theta[:cfg.nbath]
+    vk = theta[cfg.nbath:]
+    d = (vk[None, :] ** 2 / (z[:, None] - ek[None, :])).sum(-1)
+    if cfg.cg_scheme == "weiss":
+        d = 1.0 / (z + cfg.xmu - h_aa - d)
+    r = _cabs_pow(target - d, cfg.cg_pow)
+    return (r / wgt).sum() / z.shape[0]
+
+
+def chi2_fitgf(cfg: EDConfig, target: np.ndarray, bath_array: np.ndarray,
+               hloc: np.ndarray, ispin: Optional[int] = None,
+               outdir: Optional[str] = None, suffix: str = "") -> np.ndarray:
+    """Fit the bath to the Weiss field / hybridization (ed_chi2_fitgf).
+
+    target: [nspin, nspin, norb, norb, Lmats] on the fermionic Matsubara
+    grid. Returns the updated packed bath array. With ``outdir``, appends
+    the reference's ``chi2fit_results*<suffix>.ed`` records.
+    """
+    _require_normal(cfg)
+    wm_full = matsubara_grid(cfg)
+    lfit = min(cfg.lfit, target.shape[-1], len(wm_full))
+    wm = wm_full[:lfit]
+    z = torch.as_tensor(1j * wm, dtype=torch.complex128)
+    wgt = torch.as_tensor(_fit_weight(cfg, wm), dtype=torch.float64)
+    spins = [ispin] if ispin is not None else list(range(cfg.nspin))
+    bath = unpack_bath(cfg, bath_array)
+    hloc = np.asarray(hloc, np.float64)
+    fit_log: List[Tuple[str, float, int]] = []
+    e, v = bath.e.copy(), bath.v.copy()
+    for s in spins:
+        for a in range(cfg.norb):
+            tgt = torch.as_tensor(np.asarray(target[s, s, a, a, :lfit]),
+                                  dtype=torch.complex128)
+
+            def chi2(theta, tgt=tgt, h_aa=float(hloc[s, s, a, a])):
+                return chi2_normal(cfg, theta, z, tgt, wgt, h_aa)
+
+            theta0 = np.concatenate([e[s, a], v[s, a]])
+            theta, chi, nit = _minimize(cfg, chi2, theta0)
+            fit_log.append((f"_orb{a + 1}_s{s + 1}{suffix}", chi, nit))
+            e[s, a] = theta[:cfg.nbath]
+            v[s, a] = np.abs(theta[cfg.nbath:])
+    if outdir is not None:
+        for file_sfx, chi, nit in fit_log:
+            with open(os.path.join(outdir, f"chi2fit_results{file_sfx}.ed"),
+                      "a") as fh:
+                fh.write(f"{chi:18.9E} {nit:5d}\n")
+    return pack_bath(cfg, Bath(e=e, v=v))
+
+
+class _StopWatcher:
+    """Reference fmin_cg stopping conditions (CG_STOP,
+    ED_INPUT_VARS.f90:196), as a scipy callback:
+
+        C1 = |F_{n-1} - F_n|   < ftol * (1 + F_n)
+        C2 = ||x_{n-1} - x_n|| < ftol * (1 + ||x_n||)
+
+    cg_stop = 0 -> C1.AND.C2, 1 -> C1, 2 -> C2."""
+
+    def __init__(self, fun_value, ftol: float, istop: int):
+        self.fv = fun_value
+        self.ftol = ftol
+        self.istop = istop
+        self.prev_x: Optional[np.ndarray] = None
+        self.prev_f: Optional[float] = None
+        self.nit = 0
+
+    def __call__(self, xk, *_):
+        xk = np.asarray(xk, dtype=np.float64)
+        fk = self.fv(xk)
+        self.nit += 1
+        stop = False
+        if self.prev_x is not None:
+            c1 = abs(self.prev_f - fk) < self.ftol * (1.0 + abs(fk))
+            c2 = (np.linalg.norm(self.prev_x - xk)
+                  < self.ftol * (1.0 + np.linalg.norm(xk)))
+            stop = {0: c1 and c2, 1: c1, 2: c2}.get(self.istop, c1 and c2)
+        self.prev_x, self.prev_f = xk, fk
+        if stop:
+            raise StopIteration
+
+
+def value_and_grad(chi2_fn: Callable, t: np.ndarray) -> Tuple[float,
+                                                               np.ndarray]:
+    """(chi2, d chi2 / d theta) at t by torch autograd (f64, CPU)."""
+    th = torch.tensor(np.asarray(t, np.float64), requires_grad=True)
+    val = chi2_fn(th)
+    (grad,) = torch.autograd.grad(val, th)
+    return float(val.detach()), grad.numpy().astype(np.float64)
+
+
+def _minimize(cfg: EDConfig, chi2_fn: Callable,
+              theta0: np.ndarray) -> Tuple[np.ndarray, float, int]:
+    """Quasi-Newton descent on the chi2 (the reference's dials:
+    cg_method 0 -> L-BFGS-B, 1 -> CG; cg_grad 0 -> exact autograd
+    gradient, 1 -> finite differences with step cg_minimize_hh;
+    cg_stop / cg_ftol via :class:`_StopWatcher`). Returns
+    (theta, chi2, niter)."""
+    numeric = cfg.cg_grad != 0
+
+    def fval(t):
+        with torch.no_grad():
+            return float(chi2_fn(torch.as_tensor(np.asarray(t, np.float64))))
+
+    if numeric:
+        fun, jac = fval, None
+    else:
+        fun, jac = (lambda t: value_and_grad(chi2_fn, t)), True
+    watcher = _StopWatcher(fval, cfg.cg_ftol, cfg.cg_stop)
+    if cfg.cg_method == 1:
+        options = {"maxiter": cfg.cg_niter, "gtol": 1e-12}
+        method = "CG"
+    else:
+        options = {"maxiter": cfg.cg_niter, "ftol": cfg.cg_ftol * 1e-3,
+                   "gtol": 1e-12}
+        method = "L-BFGS-B"
+    if numeric:
+        options["eps"] = cfg.cg_minimize_hh
+    res = _scipy_minimize(fun, theta0, jac=jac, method=method,
+                          callback=watcher, options=options)
+    theta = np.asarray(res.x)
+    nit = int(getattr(res, "nit", watcher.nit) or watcher.nit)
+    return theta, fval(theta), nit

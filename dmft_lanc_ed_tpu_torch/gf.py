@@ -1,0 +1,261 @@
+"""Impurity Green's functions and self-energy (port of
+``dmft_lanc_ed_tpu/gf.py``; reference ED_GF_NORMAL.f90, ED_GF_SHARED.f90).
+
+GFs are stored as pole/weight data (the reference's `GFmatrix`) and
+evaluated on any frequency grid in one broadcast. Excitation vectors
+c|psi>, c^+|psi> are built on the host by injective fancy assignment over
+the sector maps; their Krylov tridiagonalizations run on the device, batched
+by target sector (:class:`_ExcBatcher`):
+
+- targets with dim >= ``ed_gf_chain_min_dim`` of the band-sparse backend run
+  the B4 chain kernel (:func:`~.ops.bs_chain.gf_tridiag_batch`);
+- smaller targets run a batched Lanczos scan over the dense operator.
+
+The tiny tridiagonal eigenproblems run on host LAPACK. Conventions as in
+the reference: pole contribution peso/(z - isign*(lambda_j - E_i)),
+peso = norm2 * Z(1,j)^2 * boltzmann/Z (add_to_lanczos_gf_normal).
+
+Only the diagonal GF of the normal bath is ported: the off-diagonal GF and
+``build_gf_full`` raise (ROADMAP A6).
+"""
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from .bath import Bath
+from .bath_functions import invg0_bath
+from .config import EDConfig
+from .eigenspace import StateList
+from .ops.lanczos import lanczos_tridiag_batched, tridiag_eigh
+from .sectors import Sector, SectorQN, SectorTable, op_map
+
+log = logging.getLogger("dmft_lanc_ed_tpu_torch")
+
+Channel = Tuple[int, int, int]   # (ispin, iorb, jorb)
+
+
+@dataclass
+class GFPoles:
+    """Rational representation sum_k w_k / (z - p_k) of one GF channel."""
+    weights: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    poles: np.ndarray = field(default_factory=lambda: np.zeros(0))
+
+    def add(self, w: np.ndarray, p: np.ndarray) -> None:
+        self.weights = np.concatenate([self.weights, w])
+        self.poles = np.concatenate([self.poles, p])
+
+    def __call__(self, z: np.ndarray) -> np.ndarray:
+        if len(self.weights) == 0:
+            return np.zeros(len(z), dtype=np.complex128)
+        zz = np.asarray(z, np.complex128)
+        w = np.asarray(self.weights, np.complex128)
+        p = np.asarray(self.poles)
+        return (w[None, :] / (zz[:, None] - p[None, :])).sum(-1)
+
+
+@dataclass
+class GFData:
+    """All GF channels of one solve."""
+    channels: Dict[Channel, GFPoles] = field(default_factory=dict)
+    # excitations routed through the B4 chain kernel and the dense scan
+    routing: Tuple[int, int] = (0, 0)
+
+    def get(self, c: Channel) -> GFPoles:
+        if c not in self.channels:
+            self.channels[c] = GFPoles()
+        return self.channels[c]
+
+    def evaluate(self, cfg: EDConfig, z: np.ndarray) -> np.ndarray:
+        """[nspin, nspin, norb, norb, L] on the given frequency points."""
+        out = np.zeros((cfg.nspin, cfg.nspin, cfg.norb, cfg.norb, len(z)),
+                       dtype=np.complex128)
+        for (s, a, b), gp in self.channels.items():
+            out[s, s, a, b] = gp(z)
+        return out
+
+
+def apply_op(cfg: EDConfig, sec_from: Sector, sec_to: Sector, vec,
+             iorb: int, ispin: int, create: bool) -> np.ndarray:
+    """vvinit = c^{(+)}_{iorb, ispin} |vec>, mapped into sector `sec_to`
+    (host numpy; ED_GF_NORMAL.f90:184-216 / 259-290 behavior). vec: flat
+    in sector_from linear order; returns flat in sector_to order."""
+    du_f, dd_f, dp = sec_from.dim_up, sec_from.dim_dw, sec_from.dim_ph
+    du_t, dd_t = sec_to.dim_up, sec_to.dim_dw
+    v = np.asarray(vec).reshape(dp, dd_f, du_f)
+    if ispin == 0:
+        idx, sgn = op_map(sec_from.states_up[0], sec_to.states_up[0],
+                          iorb, create)
+        m = idx >= 0
+        out = np.zeros((dp, dd_t, du_t), v.dtype)
+        out[:, :, idx[m]] = v[:, :, m] * sgn[m].astype(v.dtype)[None, None]
+    else:
+        idx, sgn = op_map(sec_from.states_dw[0], sec_to.states_dw[0],
+                          iorb, create)
+        m = idx >= 0
+        out = np.zeros((dp, dd_t, du_f), v.dtype)
+        out[:, idx[m], :] = v[:, m, :] \
+            * sgn[m].astype(v.dtype)[None, :, None]
+    return out.reshape(-1)
+
+
+class HCache:
+    """Per-solve cache of target-sector operators on `device`: (op, apply)
+    pairs from the backend factory, built once per sector. Under the
+    band-sparse backend, targets below ``ed_gf_chain_min_dim`` get the dense
+    operator (its apply is the same mixed contract as the band-sparse flat
+    apply)."""
+
+    def __init__(self, cfg: EDConfig, table: SectorTable, hloc, bath: Bath,
+                 device="cpu", h_basis=None):
+        from .ops.factory import resolve_backend
+        self.cfg = cfg
+        self.table = table
+        self.hloc = hloc
+        self.bath = bath
+        self.device = torch.device(device)
+        self.h_basis = h_basis
+        self.backend = resolve_backend(cfg, self.device)
+        self._cache: Dict[SectorQN, tuple] = {}
+
+    def _build(self, sec: Sector):
+        from .ops.factory import _DENSE_APPLY, make_sector_op, \
+            resolve_precision
+        from .ops.dense import build_dense_op
+        if (self.backend == "pallas"
+                and sec.dim < self.cfg.ed_gf_chain_min_dim):
+            op = build_dense_op(self.cfg, sec, self.hloc, self.bath,
+                                self.device, h_basis=self.h_basis)
+            return op, _DENSE_APPLY[resolve_precision(self.cfg, self.device)]
+        return make_sector_op(self.cfg, sec, self.hloc, self.bath,
+                              self.device, h_basis=self.h_basis)
+
+    def __call__(self, sqn: SectorQN):
+        if sqn not in self._cache:
+            self._cache[sqn] = self._build(self.table.sector(sqn))
+        return self._cache[sqn]
+
+
+class _ExcBatcher:
+    """Collects excitation vectors by target sector, then runs each
+    sector's chains together (batched continued fractions)."""
+
+    def __init__(self, cfg: EDConfig, hcache: HCache, max_bytes=1 << 27):
+        self.cfg = cfg
+        self.hcache = hcache
+        self.groups: Dict[SectorQN, List] = {}
+        self.max_bytes = max_bytes
+        self.routing = (0, 0)
+
+    def add(self, jqn: SectorQN, vv: np.ndarray, norm2: float,
+            state_e: float, isign: int, peso: float, gf: GFPoles) -> None:
+        self.groups.setdefault(jqn, []).append(
+            (vv, norm2, state_e, isign, peso, gf))
+
+    @staticmethod
+    def _accumulate(chunk, a_np, b_np) -> None:
+        """Tridiagonals -> continued-fraction poles (add_to_lanczos_gf)."""
+        for t, a, b in zip(chunk, a_np, b_np):
+            _, norm2, state_e, isign, peso, gf = t
+            theta, s = tridiag_eigh(a, b)
+            weights = norm2 * peso * (s[0, :] ** 2)
+            poles = isign * (theta - state_e)
+            keep = np.abs(weights) > 1e-30
+            gf.add(weights[keep], poles[keep])
+
+    def run(self) -> None:
+        from .ops.blocksparse import BlockSparseSectorOp
+        from .ops.bs_chain import gf_chain_applicable, gf_tridiag_batch
+        n_chain = n_scan = 0
+        for jqn, tasks in self.groups.items():
+            op, op_apply = self.hcache(jqn)
+            dim = tasks[0][0].shape[0]
+            log.debug("gf batch: sector %s, %d excitations, dim %d",
+                      jqn, len(tasks), dim)
+            m = min(dim, self.cfg.lanc_ngfiter)
+            vs = np.stack([t[0] for t in tasks])
+            if (isinstance(op, BlockSparseSectorOp)
+                    and dim >= self.cfg.ed_gf_chain_min_dim
+                    and gf_chain_applicable(op, m)):
+                # B4: every excitation of this target in one chain launch
+                n_chain += len(tasks)
+                a_b, b_b = gf_tridiag_batch(op, vs, m)
+                self._accumulate(tasks, a_b, b_b)
+                continue
+            bmax = max(1, self.max_bytes // max(dim * 8, 1))
+            for i0 in range(0, len(tasks), bmax):
+                chunk = tasks[i0:i0 + bmax]
+                n_scan += len(chunk)
+                v0 = torch.as_tensor(vs[i0:i0 + bmax], dtype=torch.float64,
+                                     device=op.device)
+                a_b, b_b = lanczos_tridiag_batched(op, v0, m, op_apply)
+                self._accumulate(chunk, a_b, b_b)
+        if n_chain or n_scan:
+            log.info("gf batch routing: %d excitations via fused chain "
+                     "kernel, %d via batched scan", n_chain, n_scan)
+        self.routing = (n_chain, n_scan)
+        self.groups.clear()
+
+
+def _queue_excitation(cfg, table, batcher: _ExcBatcher, st, iorb, ispin,
+                      create, peso, gf: GFPoles) -> None:
+    isign = +1 if create else -1
+    iud = iorb if table.ns_ud > 1 else 0
+    jqn = (table.cdg_sector(st.qn, iud, ispin) if create
+           else table.c_sector(st.qn, iud, ispin))
+    if jqn is None:
+        return
+    vv = apply_op(cfg, table.sector(st.qn), table.sector(jqn), st.vec, iorb,
+                  ispin, create)
+    norm2 = float(np.vdot(vv, vv).real)
+    if norm2 < 1e-28:
+        return
+    batcher.add(jqn, vv / np.sqrt(norm2), norm2, st.e, isign, peso, gf)
+
+
+def build_gf_normal(cfg: EDConfig, table: SectorTable, hcache: HCache,
+                    state_list: StateList) -> GFData:
+    """Diagonal electron GF (build_gf_normal), batched by target sector."""
+    if cfg.ed_solve_offdiag_gf or cfg.bath_type != "normal":
+        raise NotImplementedError("the off-diagonal GF is not ported yet "
+                                  "(ROADMAP A6)")
+    gf = GFData()
+    weights, zeta = state_list.boltzmann_weights(cfg.beta, cfg.finite_t)
+    batcher = _ExcBatcher(cfg, hcache)
+    for w_s, st in zip(weights, state_list.states):
+        if cfg.finite_t and cfg.beta * (st.e - state_list.emin) >= 200:
+            continue
+        peso = w_s / zeta
+        for ispin in range(cfg.nspin):
+            for iorb in range(cfg.norb):
+                ch = gf.get((ispin, iorb, iorb))
+                _queue_excitation(cfg, table, batcher, st, iorb, ispin,
+                                  True, peso, ch)
+                _queue_excitation(cfg, table, batcher, st, iorb, ispin,
+                                  False, peso, ch)
+    batcher.run()
+    gf.routing = batcher.routing
+    return gf
+
+
+def build_gf_full(cfg: EDConfig, table: SectorTable,
+                  state_list: StateList) -> GFData:
+    raise NotImplementedError("build_gf_full (ed_diag_type='full') is not "
+                              "ported yet (ROADMAP A6)")
+
+
+def build_sigma(cfg: EDConfig, hloc, bath: Bath, gf: GFData, z: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Dyson self-energy (build_sigma_normal, ED_GF_NORMAL.f90:935-1002):
+    returns (Sigma, G) on the given frequency points, reference layout."""
+    g = gf.evaluate(cfg, z)
+    ig0 = invg0_bath(cfg, hloc, bath, z).numpy()
+    sigma = np.zeros_like(g)
+    for s in range(cfg.nspin):
+        for a in range(cfg.norb):
+            sigma[s, s, a, a] = ig0[s, s, a, a] - 1.0 / g[s, s, a, a]
+    return sigma, g

@@ -1,0 +1,366 @@
+"""Band-sparse sector operator: host builder and plain applies (port of
+``dmft_lanc_ed_tpu/ops/blocksparse.py``).
+
+The host builder is the reference's: a reverse-Cuthill-McKee reordering of
+each one-spin hop factor concentrates its nonzeros into a band of a few
+128-tiles, and the factors become clipped banded slabs over the 128-padded
+permuted grid (dw: row slabs [ntd, 128, W_dw]; up: column slabs
+[ntu, W_up, 128]). The sector diagonal is exactly low-rank and becomes two
+small factors A[ddp, R] B[R, dup] by adaptive cross approximation; the pad
+block gets +PAD_SHIFT through two extra rank terms, so the pad subspace is
+exactly invariant and far above the physics.
+
+The slabs stay plain f32: the port's kernels (ops/bs_chain.py, CUDA) run
+full f32 products, so the JAX package's bf16 hi/lo split — a workaround
+for Mosaic's dot precisions — is not carried over.
+
+The padded-space exact (f64) and mixed (true-f32 products, f64 diagonal)
+applies serve the Lanczos top-off and the f64 polish of the two-stage
+ground state; they are plain ``torch.matmul``, as the JAX package left
+them to XLA. The per-call fused matvec kernel B1 (``matvec_bs_padded``,
+``chain_step``) is not ported yet (ROADMAP B1) and raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..hamiltonian import SectorHamiltonian
+from .dense import electron_only
+
+PAD_SHIFT = 1.0e3   # pad-row diagonal shift
+ACA_RANK_MAX = 24   # diagonal separability cap (physics: ~2 + norb^2)
+# Device-memory gate of the band-sparse operator (the JAX package gated on
+# the TPU's VMEM): the op keeps its padded and natural factors (f64 + f32),
+# the f32 slabs and the f64 padded diagonal in device memory, next to the
+# Krylov bases of the solver. 8 GiB leaves most of an 80 GB card to them.
+BS_DEVICE_BUDGET = 8 << 30
+
+
+def _pad128(n: int) -> int:
+    return ((n + 127) // 128) * 128
+
+
+def _factor_dense(cols: np.ndarray, vals: np.ndarray, n: int) -> np.ndarray:
+    h = np.zeros((n, n))
+    np.add.at(h, (np.repeat(np.arange(n), cols.shape[1]),
+                  np.asarray(cols).ravel()),
+              np.asarray(vals, np.float64).ravel())
+    return h
+
+
+def _rcm_perm(h: np.ndarray) -> np.ndarray:
+    """Reverse-Cuthill-McKee ordering of a symmetric factor (host scipy)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    m = sp.csr_matrix(h)
+    m.eliminate_zeros()
+    return np.asarray(reverse_cuthill_mckee(m, symmetric_mode=True),
+                      np.int64)
+
+
+def _band(h: np.ndarray) -> int:
+    i, j = np.nonzero(h)
+    return int(np.abs(i - j).max()) if i.size else 0
+
+
+def _aca(diag: np.ndarray, rmax: int = ACA_RANK_MAX,
+         tol: float = 1e-12) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Adaptive cross approximation diag ~ sum_r a_r (x) b_r (exact for the
+    exactly-low-rank sector diagonals; None if rank exceeds rmax)."""
+    r = np.array(diag, np.float64)
+    scale = np.abs(r).max() or 1.0
+    a_list, b_list = [], []
+    for _ in range(rmax):
+        flat = np.abs(r).argmax()
+        i, j = np.unravel_index(flat, r.shape)
+        piv = r[i, j]
+        if abs(piv) <= tol * scale:
+            break
+        a = r[:, j].copy()
+        b = r[i, :] / piv
+        a_list.append(a)
+        b_list.append(b)
+        r -= np.outer(a, b)
+    if np.abs(r).max() > 10 * tol * scale:
+        return None
+    if not a_list:
+        a_list, b_list = [np.zeros(diag.shape[0])], [np.zeros(diag.shape[1])]
+    return np.stack(a_list, 1), np.stack(b_list, 0)   # [dd, R], [R, du]
+
+
+def _banded_slabs(h_p: np.ndarray, n: int, np_: int, axis: int
+                  ) -> Tuple[np.ndarray, int, int]:
+    """Clipped banded slabs of a permuted factor, padded to np_.
+
+    axis=0: row slabs [nt, 128, W] (panel i of rows x column window) —
+    the dw form. axis=1: column slabs [nt, W, 128] — the up form.
+    """
+    nt = np_ // 128
+    d = (_band(h_p) + 127) // 128
+    w = min((2 * d + 1) * 128, np_)
+    hp = np.zeros((np_, np_))
+    hp[:n, :n] = h_p
+    if axis == 0:
+        slabs = np.zeros((nt, 128, w), np.float32)
+        for i in range(nt):
+            t = min(max((i - d) * 128, 0), np_ - w)
+            slabs[i] = hp[i * 128:(i + 1) * 128, t:t + w]
+    else:
+        slabs = np.zeros((nt, w, 128), np.float32)
+        for j in range(nt):
+            t = min(max((j - d) * 128, 0), np_ - w)
+            slabs[j] = hp[t:t + w, j * 128:(j + 1) * 128]
+    return slabs, w, d
+
+
+@dataclass(frozen=True)
+class BsPaddedOp:
+    """Padded-space half of the band-sparse operator: what the chain
+    kernels, the top-off and the polish read (all on one device)."""
+    dw_f32: torch.Tensor      # [ntd, 128, W_dw] f32 row slabs of Hdw
+    up_f32: torch.Tensor      # [ntu, W_up, 128] f32 column slabs of Hup
+    diag_a: torch.Tensor      # [ddp, R] f32 separable-diagonal factors
+    diag_b: torch.Tensor      # [R, dup] f32
+    diag_p: torch.Tensor      # [ddp, dup] f64 (pad rows/cols +PAD_SHIFT)
+    hup_p: torch.Tensor       # [dup, dup] f64 permuted padded
+    hdw_p: torch.Tensor       # [ddp, ddp] f64
+    hup_p32: torch.Tensor     # f32 copies (mixed top-off, plain chains)
+    hdw_p32: torch.Tensor
+    w_dw: int = 0
+    d_dw: int = 0
+    w_up: int = 0
+    d_up: int = 0
+
+    @property
+    def padded_shape(self) -> Tuple[int, int]:
+        return tuple(self.diag_p.shape)
+
+    @property
+    def dim(self) -> int:
+        ddp, dup = self.padded_shape
+        return ddp * dup
+
+    @property
+    def device(self) -> torch.device:
+        return self.diag_p.device
+
+
+@dataclass(frozen=True)
+class BlockSparseSectorOp:
+    """Sector operator of the band-sparse backend.
+
+    ``pop`` is the padded-space half. The natural-order fields serve the
+    boundary crossings (:func:`to_padded` / :func:`from_padded`), the GF
+    flat applies and the f64 oracle.
+    """
+    pop: BsPaddedOp
+    perm_dw: torch.Tensor     # [dd] natural -> permuted gather indices
+    perm_up: torch.Tensor     # [du]
+    iperm_dw: torch.Tensor    # [dd] inverse
+    iperm_up: torch.Tensor    # [du]
+    diag: torch.Tensor        # [dd, du] f64, natural order
+    hup: torch.Tensor         # [du, du] f64
+    hdw: torch.Tensor         # [dd, dd] f64
+    hup32: torch.Tensor       # f32 copies (GF flat apply, mixed contract)
+    hdw32: torch.Tensor
+    dim_dw: int = 0
+    dim_up: int = 0
+    nnz_count: int = 0
+
+    @property
+    def dim(self) -> int:
+        return self.dim_dw * self.dim_up
+
+    @property
+    def nnz(self) -> int:
+        return self.nnz_count
+
+    @property
+    def padded_shape(self) -> Tuple[int, int]:
+        return self.pop.padded_shape
+
+    @property
+    def device(self) -> torch.device:
+        return self.pop.device
+
+
+def _pop(op) -> BsPaddedOp:
+    """Accept either the outer sector op or the padded half."""
+    return op.pop if isinstance(op, BlockSparseSectorOp) else op
+
+
+def _device_bytes(dd: int, du: int) -> int:
+    """Device footprint of the op built for a dd x du sector (the slab
+    windows bounded by the full padded width)."""
+    ddp, dup = _pad128(dd), _pad128(du)
+    return (8 * ddp * dup + 8 * dd * du            # diag_p, natural diag
+            + 12 * (ddp * ddp + dup * dup)         # padded factors f64+f32
+            + 12 * (dd * dd + du * du)             # natural factors f64+f32
+            + 4 * (ddp * ddp + dup * dup))         # slabs (W <= padded dim)
+
+
+def blocksparse_applicable(h: SectorHamiltonian) -> bool:
+    """Pure-electron sectors without Jx/Jp whose operator fits the device
+    budget and whose diagonal is ACA-separable (it always is for
+    density-density interactions)."""
+    if h.ph_diag is not None or h.nd_up_src is not None:
+        return False
+    if _device_bytes(h.dim_dw, h.dim_up) > BS_DEVICE_BUDGET:
+        return False
+    return _aca(np.asarray(h.diag, np.float64)) is not None
+
+
+def build_blocksparse_op(h: SectorHamiltonian, device) -> BlockSparseSectorOp:
+    """Host builder (RCM, slabs, ACA) -> operator tensors on `device`."""
+    electron_only(h, "band-sparse backend")
+    dd, du = h.dim_dw, h.dim_up
+    ddp, dup = _pad128(dd), _pad128(du)
+    hup = _factor_dense(h.up_cols, h.up_vals, du)
+    hdw = _factor_dense(h.dw_cols, h.dw_vals, dd)
+    diag = np.asarray(h.diag, np.float64)
+
+    perm_up = _rcm_perm(hup)
+    perm_dw = _rcm_perm(hdw)
+    hup_p = hup[perm_up][:, perm_up]
+    hdw_p = hdw[perm_dw][:, perm_dw]
+    diag_p = diag[perm_dw][:, perm_up]
+
+    dw_slabs, w_dw, d_dw = _banded_slabs(hdw_p, dd, ddp, axis=0)
+    up_slabs, w_up, d_up = _banded_slabs(hup_p, du, dup, axis=1)
+
+    # separable diagonal over the padded grid, pad shift included as two
+    # extra rank terms: PAD_SHIFT * (1_pad^dw (x) 1 + 1_phys^dw (x) 1_pad^up)
+    ab = _aca(diag_p)
+    if ab is None:
+        raise ValueError("sector diagonal is not ACA-separable "
+                         "(use the dense backend)")
+    a, b = ab
+    r = a.shape[1]
+    rp = max(8, ((r + 2 + 7) // 8) * 8)
+    diag_a = np.zeros((ddp, rp), np.float32)
+    diag_b = np.zeros((rp, dup), np.float32)
+    diag_a[:dd, :r] = a
+    diag_b[:r, :du] = b
+    diag_a[dd:, r] = PAD_SHIFT
+    diag_b[r, :] = 1.0
+    diag_a[:dd, r + 1] = PAD_SHIFT
+    diag_b[r + 1, du:] = 1.0
+
+    hup_pp = np.zeros((dup, dup))
+    hup_pp[:du, :du] = hup_p
+    hdw_pp = np.zeros((ddp, ddp))
+    hdw_pp[:dd, :dd] = hdw_p
+    diag_pp = np.zeros((ddp, dup))
+    diag_pp[:dd, :du] = diag_p
+    diag_pp[dd:, :] += PAD_SHIFT
+    diag_pp[:dd, du:] += PAD_SHIFT
+
+    inv_up = np.empty(du, np.int64)
+    inv_up[perm_up] = np.arange(du)
+    inv_dw = np.empty(dd, np.int64)
+    inv_dw[perm_dw] = np.arange(dd)
+
+    def put(x, dtype=torch.float64):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    f32 = torch.float32
+    pop = BsPaddedOp(
+        dw_f32=put(dw_slabs, f32), up_f32=put(up_slabs, f32),
+        diag_a=put(diag_a, f32), diag_b=put(diag_b, f32),
+        diag_p=put(diag_pp), hup_p=put(hup_pp), hdw_p=put(hdw_pp),
+        hup_p32=put(hup_pp, f32), hdw_p32=put(hdw_pp, f32),
+        w_dw=w_dw, d_dw=d_dw, w_up=w_up, d_up=d_up)
+    i64 = torch.int64
+    return BlockSparseSectorOp(
+        pop=pop, perm_dw=put(perm_dw, i64), perm_up=put(perm_up, i64),
+        iperm_dw=put(inv_dw, i64), iperm_up=put(inv_up, i64),
+        diag=put(diag), hup=put(hup), hdw=put(hdw),
+        hup32=put(hup, f32), hdw32=put(hdw, f32),
+        dim_dw=dd, dim_up=du, nnz_count=h.nnz)
+
+
+# --------------------------------------------------------------------------
+# the per-call fused matvec kernel (B1) — not ported yet
+# --------------------------------------------------------------------------
+def matvec_bs_padded(op, v32p: torch.Tensor) -> torch.Tensor:
+    raise NotImplementedError(
+        "matvec_bs_padded is the per-call fused matvec kernel B1 "
+        "(blocksparse.py:_runs_kernel/_fused_kernel), not ported yet "
+        "(ROADMAP B1)")
+
+
+def chain_step(op, v32p: torch.Tensor, inv_norm):
+    raise NotImplementedError(
+        "chain_step runs the per-call fused matvec kernel B1, not ported "
+        "yet (ROADMAP B1)")
+
+
+# --------------------------------------------------------------------------
+# boundary helpers (natural <-> permuted padded)
+# --------------------------------------------------------------------------
+def to_padded(op: BlockSparseSectorOp, v) -> torch.Tensor:
+    """Natural [..., dd, du] (numpy or tensor, any float dtype) -> permuted
+    padded f32 [..., ddp, dup] on the op's device; the pad is exactly 0."""
+    v = torch.as_tensor(v, device=op.device)
+    lead = tuple(v.shape[:-2])
+    ddp, dup = op.padded_shape
+    out = torch.zeros(lead + (ddp, dup), dtype=torch.float32,
+                      device=op.device)
+    vp = v.index_select(-2, op.perm_dw).index_select(-1, op.perm_up)
+    out[..., :op.dim_dw, :op.dim_up] = vp
+    return out
+
+
+def from_padded(op: BlockSparseSectorOp, v32p: torch.Tensor,
+                dtype=torch.float64) -> torch.Tensor:
+    """Permuted padded [..., ddp, dup] -> natural [..., dd, du] in `dtype`."""
+    vn = v32p[..., :op.dim_dw, :op.dim_up].to(dtype)
+    return vn.index_select(-2, op.iperm_dw).index_select(-1, op.iperm_up)
+
+
+# --------------------------------------------------------------------------
+# padded-space exact/mixed applies (polish & top-off)
+# --------------------------------------------------------------------------
+def matvec_bs_exact_padded(pop, v: torch.Tensor) -> torch.Tensor:
+    """f64-exact apply in the permuted padded space ([ddp, dup] in/out).
+    The pad subspace is exactly invariant (zero factor rows; diag_p keeps
+    zero pad components zero)."""
+    pop = _pop(pop)
+    return pop.diag_p * v + v @ pop.hup_p + pop.hdw_p @ v
+
+
+def matvec_bs_mixed_padded(pop, v: torch.Tensor) -> torch.Tensor:
+    """True-f32 products + f64 diagonal in the padded space (the mixed
+    contract, ~1e-7 relative), for the Lanczos top-off."""
+    pop = _pop(pop)
+    v32 = v.float()
+    y32 = v32 @ pop.hup_p32 + pop.hdw_p32 @ v32
+    return pop.diag_p * v + y32.to(v.dtype)
+
+
+# --------------------------------------------------------------------------
+# flat interfaces (natural order; GF scan and oracle)
+# --------------------------------------------------------------------------
+def _nd(op, v_flat: torch.Tensor) -> torch.Tensor:
+    return v_flat.reshape(v_flat.shape[:-1] + (op.dim_dw, op.dim_up))
+
+
+def matvec_bs_flat(op: BlockSparseSectorOp, v_flat: torch.Tensor
+                   ) -> torch.Tensor:
+    """Natural flat matvec at the mixed contract (true-f32 products over
+    the natural-order factors + f64 diagonal) — the GF / generic apply.
+    Takes [..., dim]."""
+    v = _nd(op, v_flat)
+    v32 = v.float()
+    y32 = v32 @ op.hup32 + op.hdw32 @ v32
+    return (op.diag * v + y32.to(v.dtype)).reshape(v_flat.shape)
+
+
+def matvec_bs_exact_flat(op: BlockSparseSectorOp, v_flat: torch.Tensor
+                         ) -> torch.Tensor:
+    """f64-exact apply over the natural-order factors (polish / oracle)."""
+    v = _nd(op, v_flat)
+    return (op.diag * v + v @ op.hup + op.hdw @ v).reshape(v_flat.shape)

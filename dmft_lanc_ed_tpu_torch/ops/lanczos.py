@@ -1,0 +1,341 @@
+"""Krylov eigensolvers (port of ``dmft_lanc_ed_tpu/ops/lanczos.py``).
+
+Replaces the reference's P-ARPACK / plain-Lanczos layer (SF_SP_LINALG
+`sp_eigh` / `sp_lanc_tridiag`, ED_DIAG.f90:151-204, ED_GF_NORMAL.f90:224-238):
+
+- :func:`lanczos_tridiag` / :func:`lanczos_tridiag_batched` — plain 3-term
+  recurrence producing the (alpha, beta) tridiagonal for the GF continued
+  fraction, no reorthogonalization. The JAX ``vmap`` over chains is a
+  leading batch dimension here: the applies take ``[..., dim]`` vectors.
+- :func:`lanczos_ground_state` — thick-restart Lanczos with CGS2 full
+  reorthogonalization and an optional f64 Rayleigh-Ritz polish
+  (:func:`refine_eigenpairs`).
+
+Operators are ``(op, op_apply)`` pairs with ``op_apply(op, v) -> H v`` on
+torch tensors living on the op's device. The breakdown guards use
+``torch.where``, so a thick-restart basis build synchronizes with the host
+twice per restart (the projected matrix and the residual norm), never per
+step; a GF tridiagonalization once per chain. The small eigenproblems run
+on host LAPACK, as in the reference.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+log = logging.getLogger("dmft_lanc_ed_tpu_torch")
+
+_EPS = 1e-30
+
+
+def _step(op, op_apply, v_prev, v, beta):
+    """One plain Lanczos step on [..., dim] vectors (batch-aware)."""
+    w = op_apply(op, v) - beta[..., None] * v_prev
+    alpha = (v * w).sum(-1)
+    w = w - alpha[..., None] * v
+    beta_new = torch.linalg.vector_norm(w, dim=-1)
+    ok = beta_new > _EPS
+    v_new = torch.where(ok[..., None],
+                        w / torch.where(ok, beta_new, 1.0)[..., None], 0.0)
+    beta_new = torch.where(ok, beta_new, 0.0)
+    alive = torch.linalg.vector_norm(v, dim=-1) > 0.5   # unit or exactly 0
+    alpha = torch.where(alive, alpha, 0.0)
+    return v, v_new, beta_new, alpha
+
+
+def lanczos_tridiag_batched(op, v0_batch: torch.Tensor, m: int,
+                            op_apply: Callable
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """m-step tridiagonalization of B chains: v0_batch [B, dim] normalized
+    -> (alphas, betas) [B, m] host f64, with betas[:, 0] == 0 and betas[:, i]
+    the coupling step i-1 <-> i (the (alanc, blanc) layout of
+    ED_GF_NORMAL.f90:633-637). A chain whose invariant subspace is
+    exhausted (beta = 0) zeros out and contributes zero-weight poles."""
+    v = v0_batch
+    v_prev = torch.zeros_like(v)
+    beta = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    alphas, betas = [], []
+    for _ in range(m):
+        v_prev, v, beta, alpha = _step(op, op_apply, v_prev, v, beta)
+        alphas.append(alpha)
+        betas.append(beta)
+    a = torch.stack(alphas, -1).double().cpu().numpy()
+    b = torch.stack(betas, -1).double().cpu().numpy()
+    b = np.concatenate([np.zeros(b.shape[:-1] + (1,)), b[..., :-1]], -1)
+    return a, b
+
+
+def lanczos_tridiag(op, v0: torch.Tensor, m: int, op_apply: Callable
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Single-chain :func:`lanczos_tridiag_batched`: v0 [dim] -> [m], [m]."""
+    a, b = lanczos_tridiag_batched(op, v0[None], m, op_apply)
+    return a[0], b[0]
+
+
+def tridiag_eigh(alphas, betas) -> Tuple[np.ndarray, np.ndarray]:
+    """Eigendecomposition of the Lanczos tridiagonal on host LAPACK (the
+    reference's `eigh` on (alanc, blanc), ED_GF_NORMAL.f90:637)."""
+    a = np.asarray(alphas)
+    b = np.asarray(betas)
+    t = np.diag(a) + np.diag(b[1:], 1) + np.diag(b[1:], -1)
+    return np.linalg.eigh(t)
+
+
+# --------------------------------------------------------------------------
+# ground-state solver: thick-restart Lanczos (Rayleigh-Ritz restarted)
+# --------------------------------------------------------------------------
+class _BasisResult(NamedTuple):
+    v_basis: torch.Tensor   # [m, *vshape]
+    t_mat: np.ndarray       # [m, m] projected matrix (upper triangle valid)
+    beta_last: float        # coupling out of the last vector (residual norm)
+    v_next: torch.Tensor    # normalized residual direction (or zeros)
+
+
+def _build_basis_rr(op, prefix, theta0, v_start, m: int, l: int,
+                    op_apply: Callable, fast_proj: bool = False
+                    ) -> _BasisResult:
+    """Extend an l-vector Ritz prefix to an m-vector orthonormal basis.
+
+    Thick-restart Lanczos with CGS2 full reorthogonalization (TRLan): the
+    prefix rows are Ritz vectors of the previous restart, so the projected
+    matrix is diag(theta0) on the prefix block; T[j, i] = <v_j, H v_i> is
+    recorded from the first-pass orthogonalization coefficients.
+
+    ``fast_proj`` runs the CGS2 projections on a true-f32 shadow of the
+    basis (vectors and norms stay f64), as ``ops/lanczos.py:143-174`` of
+    the JAX package does on accelerators: the orthogonality floor becomes
+    ~1e-7, which the mixed-apply tolerance floor and the f64 polish absorb.
+    """
+    dtype = v_start.dtype
+    vshape = tuple(v_start.shape)
+    n = int(np.prod(vshape))
+    dev = v_start.device
+    vb = torch.zeros((m, n), dtype=dtype, device=dev)
+    t_mat = torch.zeros((m, m), dtype=dtype, device=dev)
+    if l:
+        vb[:l] = prefix.reshape(l, n)
+        t_mat[torch.arange(l), torch.arange(l)] = theta0
+    use32 = fast_proj and dtype == torch.float64
+    vb32 = vb.float() if use32 else None
+
+    def cgs_pass(rows: int, w):
+        """One classical GS pass against the first `rows` basis vectors."""
+        if rows == 0:
+            return torch.zeros(0, dtype=dtype, device=dev), w
+        if use32:
+            c32 = vb32[:rows] @ w.float()
+            return c32.to(dtype), w - (c32 @ vb32[:rows]).to(dtype)
+        c = vb[:rows] @ w
+        return c, w - c @ vb[:rows]
+
+    _, v = cgs_pass(l, v_start.reshape(n))
+    _, v = cgs_pass(l, v)
+    v = v / torch.clamp(torch.linalg.vector_norm(v), min=_EPS)
+    beta = torch.zeros((), dtype=dtype, device=dev)
+    for i in range(l, m):
+        vb[i] = v
+        if use32:
+            vb32[i] = v.float()
+        w = op_apply(op, v.reshape(vshape)).reshape(n).to(dtype)
+        c1, w = cgs_pass(i + 1, w)
+        t_mat[:i + 1, i] = c1
+        _, w = cgs_pass(i + 1, w)
+        beta = torch.linalg.vector_norm(w)
+        ok = beta > 1e-14
+        v = torch.where(ok, w / torch.where(ok, beta, 1.0), 0.0)
+        beta = torch.where(ok, beta, 0.0)
+    return _BasisResult(vb.reshape((m,) + vshape), t_mat.cpu().numpy(),
+                        float(beta), v.reshape(vshape))
+
+
+def _ritz(t_mat: np.ndarray, m: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host eigendecomposition of the (upper-triangle-valid) projected T."""
+    t = np.triu(t_mat[:m, :m])
+    t = t + np.triu(t, 1).T
+    return np.linalg.eigh(t)
+
+
+def lanczos_ground_state(
+    op,
+    op_apply: Callable,
+    dim: int,
+    neigen: int,
+    ncv: Optional[int] = None,
+    tol: float = 1e-14,
+    max_restarts: int = 400,
+    seed: int = 17,
+    dtype=torch.float64,
+    v0: Optional[torch.Tensor] = None,
+    vshape: Optional[Tuple[int, ...]] = None,
+    polish_apply: Optional[Callable] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Lowest `neigen` eigenpairs of the operator (replaces ARPACK `sp_eigh`).
+
+    Vectors live in their natural shape `vshape` (default flat ``(dim,)``)
+    on the op's device. Random starts come from numpy ``default_rng(seed)``.
+    With ``polish_apply`` (an f64-exact apply), eigenpairs from a
+    mixed-precision run are refined by :func:`refine_eigenpairs`.
+
+    Returns (energies [k], vectors [k, dim] host f64) ascending, k == neigen.
+    """
+    vshape = tuple(vshape) if vshape is not None else (dim,)
+    dev = op.device
+    fast_proj = (polish_apply is not None and dtype == torch.float64
+                 and dev.type == "cuda")
+    neigen = min(neigen, dim)
+    m = ncv or max(2 * neigen + 16, 32)
+    m = min(m, dim)
+    l_keep = min(max(2 * neigen, neigen + 4), max(m - 4, 1))
+    rng = np.random.default_rng(seed)
+
+    def random_vec():
+        return torch.as_tensor(rng.standard_normal(vshape), dtype=dtype,
+                               device=dev)
+
+    v0 = random_vec() if v0 is None else \
+        torch.as_tensor(v0, device=dev).to(dtype).reshape(vshape)
+    v0 = v0 / torch.linalg.vector_norm(v0)
+
+    prefix = torch.zeros((0,) + vshape, dtype=dtype, device=dev)
+    theta0 = torch.zeros((0,), dtype=dtype, device=dev)
+    l = 0
+    stall = 0
+    n_conv_prev = 0
+    for _ in range(max_restarts):
+        res = _build_basis_rr(op, prefix, theta0, v0, m, l, op_apply,
+                              fast_proj=fast_proj)
+        theta_np, s_np = _ritz(res.t_mat, m)
+        resid = np.abs(res.beta_last * s_np[m - 1, :])
+        n_conv = 0
+        while (n_conv < m and
+               resid[n_conv] <= tol * max(abs(theta_np[n_conv]), 1.0)):
+            n_conv += 1
+        if n_conv >= neigen:
+            s = torch.as_tensor(s_np[:, :neigen], dtype=dtype, device=dev)
+            vecs = torch.tensordot(s.T, res.v_basis, dims=1)  # [k, *vshape]
+            vals = theta_np[:neigen]
+            if polish_apply is not None:
+                vals, vecs = refine_eigenpairs(op, polish_apply, vecs)
+            vecs_flat = vecs.reshape(neigen, -1).double().cpu().numpy()
+            order = np.argsort(vals)
+            return np.asarray(vals)[order], vecs_flat[order]
+
+        # thick restart: keep the lowest l_keep Ritz pairs + the residual
+        l = min(l_keep, m - 2)
+        s = torch.as_tensor(s_np[:, :l], dtype=dtype, device=dev)
+        prefix = torch.tensordot(s.T, res.v_basis, dims=1)
+        theta0 = torch.as_tensor(theta_np[:l], dtype=dtype, device=dev)
+        if res.beta_last > 0.0:
+            v0 = res.v_next
+        else:
+            v0 = random_vec()      # invariant subspace exhausted
+        stall = 0 if n_conv > n_conv_prev else stall + 1
+        n_conv_prev = n_conv
+        m_cap = min(dim, max(4 * (ncv or 32), 256))
+        if stall >= 20 and m < m_cap:
+            m = min(m_cap, 2 * m)
+            l_keep = min(max(2 * neigen, neigen + 4), max(m - 4, 1))
+            stall = 0
+    raise RuntimeError(
+        f"lanczos_ground_state: no convergence after {max_restarts} restarts "
+        f"({n_conv_prev}/{neigen} converged, dim={dim})")
+
+
+# --------------------------------------------------------------------------
+# f64 Rayleigh-Ritz polish
+# --------------------------------------------------------------------------
+_DROP_PIN = 1.0e12     # projected-diagonal pin for rank-dropped directions
+
+
+def refine_eigenpairs(op, op_apply: Callable, vecs: torch.Tensor,
+                      steps: int = 2, max_rounds: int = 3
+                      ) -> Tuple[np.ndarray, torch.Tensor]:
+    """f64 Rayleigh-Ritz polish of approximate eigenpairs.
+
+    Builds the block Krylov space [V, HV, ..., H^steps V] with the exact
+    apply, orthonormalizes it by CGS with reorthogonalization, and solves
+    the small projected eigenproblem on the host; repeats until the Ritz
+    values stabilize to 1e-13 relative or ``max_rounds``. An input
+    eigenvector with error eta returns with eigenvalue error O(eta^2).
+    Returns (values host f64 [k], vectors f64 [k, *vshape] on the device).
+    """
+    vals_prev = None
+    vals = None
+    for _ in range(max_rounds):
+        vals, vecs = _refine_once(op, op_apply, vecs, steps)
+        if vals_prev is not None and np.all(
+                np.abs(vals - vals_prev) <= 1e-13 *
+                np.maximum(np.abs(vals), 1.0)):
+            break
+        vals_prev = vals
+    return vals, vecs
+
+
+def _refine_project(op, vecs: torch.Tensor, steps: int, op_apply: Callable):
+    """Block power basis + CGS2 + projection (device half of the polish).
+
+    A candidate whose orthogonal remainder falls below 1e-10 of its own
+    norm is rank-dropped: its slot becomes an exact-zero row and its
+    projected diagonal is pinned at +_DROP_PIN, so it never appears among
+    the lowest-k Ritz pairs. H is applied to orthonormalized vectors only.
+    Returns (b_mat [r, *vshape], a_mat [r, r] host, ok [r]).
+    """
+    vecs = vecs.double()
+    k = vecs.shape[0]
+    vshape = tuple(vecs.shape[1:])
+    rows, oks, h_of_row = [], [], {}
+
+    def cgs2(w):
+        for _ in range(2):
+            for b in rows:
+                w = w - (b * w).sum() * b
+        return w
+
+    def accept(cand):
+        cand_nrm = torch.linalg.vector_norm(cand)
+        w = cgs2(cand)
+        nrm = torch.linalg.vector_norm(w)
+        ok = nrm > 1e-10 * torch.clamp(cand_nrm, min=1.0)
+        rows.append(torch.where(ok, w / torch.where(ok, nrm, 1.0), 0.0))
+        oks.append(ok)
+        return len(rows) - 1
+
+    frontier = [accept(vecs[j]) for j in range(k)]
+    for _ in range(steps):
+        nxt = []
+        for idx in frontier:
+            hv = op_apply(op, rows[idx]).reshape(vshape)
+            h_of_row[idx] = hv
+            nxt.append(accept(hv))
+        frontier = nxt
+    r = len(rows)
+    for i in range(r):
+        if i not in h_of_row:
+            h_of_row[i] = op_apply(op, rows[i]).reshape(vshape)
+    b_mat = torch.stack(rows)
+    hb = torch.stack([h_of_row[i] for i in range(r)])
+    okv = torch.stack(oks)
+    a_mat = b_mat.reshape(r, -1) @ hb.reshape(r, -1).T
+    a_mat = 0.5 * (a_mat + a_mat.T)
+    a_mat = torch.where(okv[:, None] & okv[None, :], a_mat, 0.0) \
+        + torch.diag(torch.where(okv, 0.0, _DROP_PIN).to(a_mat.dtype))
+    return b_mat, a_mat.cpu().numpy(), okv
+
+
+def _refine_once(op, op_apply: Callable, vecs: torch.Tensor, steps: int
+                 ) -> Tuple[np.ndarray, torch.Tensor]:
+    k = vecs.shape[0]
+    b_mat, a_mat, _ = _refine_project(op, vecs, steps, op_apply)
+    vals, s = np.linalg.eigh(a_mat)
+    if vals[k - 1] >= 0.5 * _DROP_PIN:
+        log.warning("refine_eigenpairs: rank-dropped basis leaves < %d "
+                    "valid directions (pinned Ritz value present); results "
+                    "truncated", k)
+    s_cols = torch.as_tensor(s[:, :k], dtype=b_mat.dtype, device=b_mat.device)
+    out = torch.tensordot(s_cols.T, b_mat, dims=1)
+    nrm = torch.linalg.vector_norm(out.reshape(k, -1), dim=1)
+    nrm = torch.clamp(nrm, min=1e-200)
+    return vals[:k], out / nrm.reshape((k,) + (1,) * (out.ndim - 1))

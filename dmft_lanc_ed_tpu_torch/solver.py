@@ -1,0 +1,159 @@
+"""Solver orchestration — the `ed_init_solver` / `ed_solve` API (port of
+``dmft_lanc_ed_tpu/solver.py``).
+
+The call sequence inside `solve` mirrors ed_solve_single
+(ED_MAIN.f90:259-302):
+
+    set bath -> diagonalize_impurity -> build GF -> observables
+             -> local_energy -> Dyson self-energy
+
+on the solver's ``device``: the sector operators and Krylov chains live
+there; the sector tables, eigenstates, GF poles and frequency-grid math
+live on the host. Frequency grids match allocate_grids
+(ED_AUX_FUNX.f90:278-304). Susceptibilities and phonons are not ported
+(ROADMAP A6) and raise.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .bath import init_bath, pack_bath, unpack_bath
+from .bath_functions import g0and_bath
+from .config import EDConfig
+from .diag import DiagState, diagonalize_impurity
+from .eigenspace import StateList
+from .gf import GFData, HCache, build_gf_normal, build_sigma
+from .observables import (Observables, local_energy_impurity,
+                          observables_impurity, zimp_simp)
+from .sectors import SectorTable
+
+log = logging.getLogger("dmft_lanc_ed_tpu_torch")
+
+
+def matsubara_grid(cfg: EDConfig) -> np.ndarray:
+    n = np.arange(cfg.lmats)
+    return np.pi / cfg.beta * (2 * n + 1)
+
+
+def real_grid(cfg: EDConfig) -> np.ndarray:
+    return np.linspace(cfg.wini, cfg.wfin, cfg.lreal)
+
+
+def default_device() -> torch.device:
+    """CUDA when a card is present, else the CPU."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+@dataclass
+class SolveResult:
+    """Everything one impurity solve produces (the ED_IO getter surface)."""
+    sigma_mats: np.ndarray      # [nspin,nspin,norb,norb,Lmats]
+    sigma_real: np.ndarray
+    g_mats: np.ndarray
+    g_real: np.ndarray
+    g0_mats: np.ndarray
+    g0_real: np.ndarray
+    observables: Observables
+    state_list: StateList
+    gf: GFData
+    timings: Dict[str, float] = field(default_factory=dict)
+
+
+class EDSolver:
+    """One impurity solver instance (`ed_init_solver` + `ed_solve`)."""
+
+    def __init__(self, cfg: EDConfig, hloc: Optional[np.ndarray] = None,
+                 device=None):
+        if cfg.chispin_flag or cfg.chidens_flag or cfg.dim_ph > 1:
+            raise NotImplementedError("susceptibilities and phonons are not "
+                                      "ported yet (ROADMAP A6)")
+        self.cfg = cfg
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        self.table = SectorTable(cfg)
+        nso = (cfg.nspin, cfg.nspin, cfg.norb, cfg.norb)
+        self.hloc = np.zeros(nso) if hloc is None else np.asarray(
+            hloc, dtype=np.float64)
+        self.diag_state = DiagState(
+            lanc_nstates_total=cfg.lanc_nstates_total)
+        self.wm = matsubara_grid(cfg)
+        self.wr = real_grid(cfg)
+        self.last_result: Optional[SolveResult] = None
+
+    def init_bath(self) -> np.ndarray:
+        """Default bath guess as packed user array (ed_init_solver output)."""
+        return pack_bath(self.cfg, init_bath(self.cfg))
+
+    def solve(self, bath) -> SolveResult:
+        cfg = self.cfg
+        t_all = time.perf_counter()
+        bath = unpack_bath(cfg, np.asarray(bath))
+        timings = {}
+
+        def synced_time():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return time.perf_counter()
+
+        t0 = synced_time()
+        state_list = diagonalize_impurity(cfg, self.table, self.hloc, bath,
+                                          self.diag_state, device=self.device)
+        timings["diag"] = synced_time() - t0
+        log.info("diag: %d states, Egs=%.12f (%.2fs)", state_list.size,
+                 state_list.emin, timings["diag"])
+
+        t0 = synced_time()
+        hcache = HCache(cfg, self.table, self.hloc, bath, device=self.device)
+        gf = build_gf_normal(cfg, self.table, hcache, state_list)
+        timings["gf"] = synced_time() - t0
+
+        t0 = time.perf_counter()
+        obs = observables_impurity(cfg, self.table, state_list)
+        local_energy_impurity(cfg, self.table, state_list, self.hloc, obs)
+        timings["observables"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        zmats = 1j * self.wm
+        zreal = self.wr + 1j * cfg.eps
+        sigma_mats, g_mats = build_sigma(cfg, self.hloc, bath, gf, zmats)
+        sigma_real, g_real = build_sigma(cfg, self.hloc, bath, gf, zreal)
+        g0_mats = g0and_bath(cfg, self.hloc, bath, zmats).numpy()
+        g0_real = g0and_bath(cfg, self.hloc, bath, zreal).numpy()
+        timings["sigma"] = time.perf_counter() - t0
+        obs.zimp, obs.simp = zimp_simp(cfg, sigma_mats, self.wm)
+        timings["total"] = time.perf_counter() - t_all
+
+        result = SolveResult(
+            sigma_mats=sigma_mats, sigma_real=sigma_real,
+            g_mats=g_mats, g_real=g_real, g0_mats=g0_mats, g0_real=g0_real,
+            observables=obs, state_list=state_list, gf=gf, timings=timings)
+        self.last_result = result
+        return result
+
+    # -- getters (ED_IO surface) -------------------------------------------
+    def get_sigma_matsubara(self):
+        return self.last_result.sigma_mats
+
+    def get_sigma_realaxis(self):
+        return self.last_result.sigma_real
+
+    def get_gimp_matsubara(self):
+        return self.last_result.g_mats
+
+    def get_gimp_realaxis(self):
+        return self.last_result.g_real
+
+    def get_g0imp_matsubara(self):
+        return self.last_result.g0_mats
+
+    def get_dens(self):
+        return self.last_result.observables.dens
+
+    def get_docc(self):
+        return self.last_result.observables.docc

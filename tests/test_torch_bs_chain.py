@@ -1,0 +1,198 @@
+"""PyTorch port, band-sparse chains (ops/bs_chain.py) against the JAX
+package on CPU: the port runs its kernels' plain versions (CPU tensors),
+the JAX package its Pallas kernels in interpret mode, both from the same
+numpy start vectors.
+
+Tolerances, each with its origin:
+- chain coefficients vs the f64 plain-Lanczos oracle: 5e-4 * scale, the
+  JAX package's split-bf16 contract (test_bs_chain.py:49-52), and port vs
+  JAX 1e-3 * scale (both errors add); the port's f32 chain additionally
+  meets the f32 GF contract, 5e-5 * scale;
+- GF chains: first 8 coefficients 5e-5 * scale and continued-fraction
+  G(iw) 2e-5 (test_bs_chain.py:126-139);
+- two-stage ground states: Egs 1e-10 (the f64 polish gate, bench.py:51),
+  eigenvector overlap 1 - 1e-8.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import dmft_lanc_ed_tpu as ed
+import dmft_lanc_ed_tpu_torch as pt
+from dmft_lanc_ed_tpu.diag import _blocksparse_ground_state as jax_two_stage
+from dmft_lanc_ed_tpu.ops import bs_chain as jbc
+from dmft_lanc_ed_tpu.ops.blocksparse import build_blocksparse_op as jax_bs
+from dmft_lanc_ed_tpu.ops.blocksparse import matvec_bs_exact_flat as jax_exact
+from dmft_lanc_ed_tpu.ops.blocksparse import to_padded as jax_to_padded
+from dmft_lanc_ed_tpu.ops.lanczos import lanczos_tridiag as jax_tridiag
+from dmft_lanc_ed_tpu_torch.convert import hamiltonian_from_reference
+from dmft_lanc_ed_tpu_torch.diag import _blocksparse_ground_state
+from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+from dmft_lanc_ed_tpu_torch.ops.blocksparse import (build_blocksparse_op,
+                                                    from_padded, to_padded)
+from dmft_lanc_ed_tpu_torch.ops.lanczos import tridiag_eigh
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU tensors here are small: one intra-op thread is as
+    fast and keeps parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _ops(nbath=6, nup=3, ndw=3):
+    """(JAX cfg, port cfg, sector, JAX op, port op, dense H) of one sector
+    of the default bath; the port's Hamiltonian is the JAX one carried
+    across by convert.py."""
+    kw = dict(norb=1, nbath=nbath, uloc=(2.0,))
+    cfg_j, cfg_p = ed.read_input(None, **kw), pt.read_input(None, **kw)
+    sec = ed.SectorTable(cfg_j).sector(ed.qn(nup, ndw))
+    h_j = ed.build_sector_hamiltonian(cfg_j, sec, np.zeros((1,) * 4),
+                                      ed.init_bath(cfg_j))
+    h_p = hamiltonian_from_reference(
+        {f.name: getattr(h_j, f.name) for f in dataclasses.fields(h_j)})
+    return (cfg_j, cfg_p, sec, jax_bs(h_j), build_blocksparse_op(h_p, "cpu"),
+            ed.dense_hamiltonian(h_j))
+
+
+def _starts(op, n, seed):
+    v = np.random.default_rng(seed).standard_normal((n, op.dim_dw, op.dim_up))
+    return v / np.linalg.norm(v.reshape(n, -1), axis=1)[:, None, None]
+
+
+def _assert_pad_zero(op, vp):
+    vp = np.asarray(vp)
+    assert np.all(vp[..., op.dim_dw:, :] == 0.0)
+    assert np.all(vp[..., :, op.dim_up:] == 0.0)
+
+
+def test_tridiag_chain_matches_reference_and_oracle():
+    _, _, _, op_j, op_p, _ = _ops()
+    v0 = _starts(op_p, 1, 3)[0]
+    m = 16
+    al_p, be_p, bout_p = bc.tridiag_chain(op_p, to_padded(op_p, v0), m)
+    al_j, be_j, _ = jbc.tridiag_chain(op_j, jax_to_padded(op_j, v0), m)
+    al_r, be_r = jax_tridiag(op_j, np.asarray(v0).reshape(-1), m, jax_exact)
+    al_r, be_r = np.asarray(al_r), np.asarray(be_r)
+    scale = max(1.0, float(np.abs(al_r).max()))
+    for al, be in ((al_p, be_p), (al_j, be_j)):
+        assert np.abs(al - al_r).max() < 5e-4 * scale
+        assert np.abs(be - be_r).max() < 5e-4 * scale
+    assert np.abs(al_p - al_j).max() < 1e-3 * scale
+    assert np.abs(be_p - be_j).max() < 1e-3 * scale
+    assert np.abs(al_p - al_r).max() < 5e-5 * scale
+    assert np.abs(be_p - be_r).max() < 5e-5 * scale
+    assert bout_p > 0.0
+
+
+def test_cheb_chain_amplifies_ground_state_and_keeps_pad_zero():
+    _, _, _, _, op_p, dense = _ops()
+    w, v = np.linalg.eigh(dense)
+    v0 = _starts(op_p, 1, 5)[0]
+    b = float(w[-1]) + 0.05 * (w[-1] - w[0])
+    cut = float(w[0]) + 0.4 * (w[1] - w[0])
+    vf = bc.cheb_chain(op_p, to_padded(op_p, v0), 32, 0.5 * (b + cut),
+                       0.5 * (b - cut))
+    _assert_pad_zero(op_p, vf)
+    vn = from_padded(op_p, vf).numpy().ravel()
+    ov0 = abs(np.vdot(v0.ravel(), v[:, 0]))
+    ovf = abs(np.vdot(vn / np.linalg.norm(vn), v[:, 0]))
+    assert ovf > 0.99 and ovf > ov0 * 10
+
+
+def test_ground_state_seed_and_two_stage_match_reference():
+    cfg_j, cfg_p, sec, op_j, op_p, dense = _ops()
+    w, v = np.linalg.eigh(dense)
+    th, seed_p, eta = bc.ground_state_seed(op_p, m_tri=24, m_cheb=32,
+                                           return_padded=True)
+    _assert_pad_zero(op_p, seed_p)
+    seed = from_padded(op_p, seed_p).numpy().ravel()
+    ov = abs(np.vdot(seed / np.linalg.norm(seed), v[:, 0]))
+    assert abs(th - w[0]) < 1e-3
+    assert ov > 0.999
+    assert np.sqrt(max(1.0 - ov * ov, 0.0)) <= max(eta, 1e-6) * 3
+    e_p, vec_p = _blocksparse_ground_state(cfg_p, op_p, sec.dim, 1, 32)
+    e_j, vec_j = jax_two_stage(cfg_j, op_j, sec.dim, 1, 32)
+    assert abs(e_p[0] - e_j[0]) < 1e-10
+    assert abs(e_p[0] - w[0]) < 1e-10
+    assert abs(abs(np.vdot(vec_p[0], np.asarray(vec_j[0]))) - 1.0) < 1e-8
+
+
+def test_tridiag_chain_breakdown():
+    """Start vector = exact eigenvector: the chain dies after one step and
+    the zero-beta truncation in ground_state_seed still returns it."""
+    _, _, _, _, op_p, dense = _ops(nbath=4, nup=2, ndw=2)
+    w, v = np.linalg.eigh(dense)
+    v0 = to_padded(op_p, v[:, 0].reshape(op_p.dim_dw, op_p.dim_up))
+    al, be, _ = bc.tridiag_chain(op_p, v0, 8)
+    assert abs(al[0] - w[0]) < 1e-4          # f32 Rayleigh quotient
+    assert be[1] < 1e-2
+    _, seed, _ = bc.ground_state_seed(op_p, m_tri=8, m_cheb=8, v0=v0)
+    assert abs(np.vdot(seed.numpy().ravel(), v[:, 0])) > 0.999
+
+
+def test_gf_tridiag_batch_matches_reference():
+    _, _, _, op_j, op_p, _ = _ops()
+    m, nb = 24, 3
+    vs = _starts(op_p, nb, 11).reshape(nb, -1)
+    al_p, be_p = bc.gf_tridiag_batch(op_p, vs, m)
+    al_j, be_j = jbc.gf_tridiag_batch(op_j, vs, m)
+    z = 1j * np.linspace(0.05, 3.0, 20)
+
+    def g_cf(al, be):
+        th, s = tridiag_eigh(al, be)
+        return ((s[0, :] ** 2)[None, :] / (z[:, None] - th)).sum(1)
+    for i in range(nb):
+        al_r, be_r = jax_tridiag(op_j, vs[i], m, jax_exact)
+        al_r, be_r = np.asarray(al_r), np.asarray(be_r)
+        scale = max(1.0, float(np.abs(al_r).max()))
+        for al, be in ((al_p[i], be_p[i]), (al_r, be_r)):
+            assert np.abs(al[:8] - al_j[i][:8]).max() < 5e-5 * scale
+            assert np.abs(be[:8] - be_j[i][:8]).max() < 5e-5 * scale
+            assert np.abs(g_cf(al, be) - g_cf(al_j[i], be_j[i])).max() < 2e-5
+
+
+def _slab_apply(pop, u):
+    """H_p u through the banded slabs with the CUDA kernel's window clamps
+    (csrc/bs_chain.cu hop_tile), in numpy f64."""
+    ddp, dup = pop.padded_shape
+    dw, up = pop.dw_f32.double().numpy(), pop.up_f32.double().numpy()
+    y = (pop.diag_a.double() @ pop.diag_b.double()).numpy() * u
+    for i in range(ddp // 128):
+        base = min(max(i - pop.d_dw, 0), (ddp - pop.w_dw) // 128) * 128
+        y[i * 128:(i + 1) * 128] += dw[i] @ u[base:base + pop.w_dw]
+    for j in range(dup // 128):
+        s = min(max((j - pop.d_up) * 128, 0), dup - pop.w_up)
+        y[:, j * 128:(j + 1) * 128] += u[:, s:s + pop.w_up] @ up[j]
+    return y
+
+
+@pytest.mark.parametrize("sqn", [(6, 6), (6, 5)])
+def test_slab_windows_reproduce_padded_factors(sqn):
+    """At nbath = 11 the RCM band clips (W < padded width), so the slab
+    windows of the kernels must reproduce the dense padded factors that
+    the plain versions apply — square (6,6) and non-square (6,5) grids."""
+    cfg = pt.read_input(None, norb=1, nbath=11, uloc=(2.0,))
+    sec = pt.SectorTable(cfg).sector(pt.qn(*sqn))
+    h = pt.build_sector_hamiltonian(cfg, sec, np.zeros((1,) * 4),
+                                    pt.init_bath(cfg))
+    pop = build_blocksparse_op(h, "cpu").pop
+    ddp, dup = pop.padded_shape
+    assert pop.w_dw < ddp and pop.w_up < dup
+    u = np.zeros((ddp, dup))
+    u[:sec.dim_dw, :sec.dim_up] = np.random.default_rng(1).standard_normal(
+        (sec.dim_dw, sec.dim_up))
+    y_slab = _slab_apply(pop, u)
+    y_plain = bc._hv_plain(pop, torch.as_tensor(u, dtype=torch.float32))
+    y_exact = (pop.diag_p.numpy() * u + u @ pop.hup_p.numpy()
+               + pop.hdw_p.numpy() @ u)
+    scale = np.abs(y_exact).max()
+    assert np.abs(y_slab - y_exact).max() < 1e-5 * scale
+    assert np.abs(y_plain.double().numpy() - y_exact).max() < 1e-5 * scale
+    assert np.all(y_slab[sec.dim_dw:] == 0) and \
+        np.all(y_slab[:, sec.dim_up:] == 0)
