@@ -1,23 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--phases 0,1,2,3,4]
+    python3 chip_smoke.py [--phases 0,1,2,3,3b,4,5]
 
 Phases (all by default; each raises on failure and the script then exits
 nonzero without a result line):
 
 0. environment: the card's name and power limit (nvidia-smi), torch/CUDA
    versions; requires CUDA; TF32 off.
-1. build the CUDA chain kernels from ``dmft_lanc_ed_tpu_torch/csrc``.
-2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag) against
-   its plain PyTorch version at the 854k-state (6,6) sector of nbath = 11,
-   with the tolerances stated below, and the time per chain step of both.
-3. the two-stage ground state of that sector on the card against host
-   ARPACK (scipy eigsh, tol 1e-13): |dE| <= 1e-10.
-4. the main path: ``run_dmft`` of the one-orbital Bethe-lattice Hubbard
-   model at nbath = 11, T = 0, 2 loops, on the card; every chain kernel
-   must launch in it, outputs must be finite, 0 <= dens <= 2, and loop 1's
-   Egs must equal phase 3's energy to 1e-9.
+1. build the CUDA kernels from ``dmft_lanc_ed_tpu_torch/csrc`` (one nvcc
+   per source, all started together).
+2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag, B1 the
+   per-call matvec, trimmed and whole-window) against its plain PyTorch
+   version at the 854k-state (6,6) sector of nbath = 11, with the
+   tolerances stated below, and the time per step or call of both.
+3. the two-stage ground state of that sector on the card (chain stage 1)
+   against host ARPACK (scipy eigsh, tol 1e-13): |dE| <= 1e-10.
+3b. the per-call path of that sector, as the JAX package's headline bench
+   drives it: normalized power steps of ``chain_step`` (B1a), then the
+   two-stage ground state with ``use_chain=False`` (f32 thick restart over
+   B1b, then the mixed top-off and f64 polish): |dE| <= 1e-10 vs ARPACK,
+   and both B1 forms must launch.
+4. ``run_dmft`` of the one-orbital Bethe-lattice Hubbard model at
+   nbath = 11, T = 0, 2 loops, on the card, sectors one by one
+   (``ed_batch_sectors=False``); every chain kernel must launch in it,
+   outputs must be finite, 0 <= dens <= 2, and loop 1's Egs must equal
+   phase 3's energy to 1e-9.
+5. the default configuration: phase 4 with ``ed_backend="auto"`` and
+   ``ed_batch_sectors`` left at True (small sectors solved in batched
+   buckets); at least one bucket solved, every chain kernel launched,
+   loop 1's energies of every Krylov sector equal phase 4's to
+   1e-9 x max(1, |E|), loop 1's Egs equal phase 3's to 1e-9, outputs
+   finite, 0 <= dens <= 2.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -33,10 +47,15 @@ import traceback
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "dmft_lanc_ed_tpu_torch/csrc/bs_chain.cu"
+CHAIN_SRC = "dmft_lanc_ed_tpu_torch/csrc/bs_chain.cu"
+MATVEC_SRC = "dmft_lanc_ed_tpu_torch/csrc/bs_matvec.cu"
+SOURCE = {"tridiag": CHAIN_SRC, "cheb": CHAIN_SRC, "gf_tridiag": CHAIN_SRC,
+          "matvec_runs": MATVEC_SRC, "matvec_full": MATVEC_SRC}
 REPLACES = {"tridiag": "dmft_lanc_ed_tpu/ops/bs_chain.py:207",
             "cheb": "dmft_lanc_ed_tpu/ops/bs_chain.py:331",
-            "gf_tridiag": "dmft_lanc_ed_tpu/ops/bs_chain.py:540"}
+            "gf_tridiag": "dmft_lanc_ed_tpu/ops/bs_chain.py:540",
+            "matvec_runs": "dmft_lanc_ed_tpu/ops/blocksparse.py:572",
+            "matvec_full": "dmft_lanc_ed_tpu/ops/blocksparse.py:469"}
 NBATH = 11
 HALF = (NBATH + 1) // 2   # the half-filled sector (6,6)
 DEVICE = "cuda"
@@ -46,18 +65,20 @@ def say(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn):
-    """Device milliseconds of one fn() after a warm-up, by CUDA events."""
+def cuda_ms(fn, reps=1):
+    """Device milliseconds per fn() over `reps` calls after a warm-up, by
+    CUDA events."""
     import torch
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    fn()
+    for _ in range(reps):
+        fn()
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1)
+    return t0.elapsed_time(t1) / reps
 
 
 def phase0():
@@ -270,9 +291,60 @@ def phase2(op, e0, v_gs):
     ms_k = cuda_ms(lambda: bc.gf_tridiag_call(op, vb, m)) / m
     ms_p = cuda_ms(lambda: bc.gf_tridiag_batch_plain(pop, vb, m)) / m
     rows.append(("gf_tridiag", err_ab, ms_k, ms_p))
+    rows += phase2_b1(op, start(1)[0])
     for name, _, ms_k, ms_p in rows:
-        say(f"  {name:10s} per step: kernel {ms_k:.4f} ms, plain "
+        say(f"  {name:11s} per step or call: kernel {ms_k:.4f} ms, plain "
             f"{ms_p:.4f} ms")
+    return rows
+
+
+def phase2_b1(op, v):
+    """B1, trimmed (B1a) and whole-window (B1b), against its plain version:
+    y within 1e-5 * max|y| and per-panel sums of squares within 1e-5
+    relative (true-f32 products summed in other orders); trimmed ==
+    whole-window exactly (the trim skips exact-zero products only); pad
+    rows and columns exactly 0; chain_step's rsqrt within 1e-6 relative of
+    1 / |y|."""
+    import torch
+    from dmft_lanc_ed_tpu_torch.ops import blocksparse as bs
+    pop = op.pop
+    scale = 0.37
+    y_p, ss_p = bs.matvec_bs_padded_plain(pop, v, scale)
+    ymax = float(y_p.abs().max())
+    out = {}
+    for name, trim in (("matvec_runs", True), ("matvec_full", False)):
+        y_k, ss_k = bs._matvec_padded(op, v, scale, trim=trim)
+        torch.cuda.synchronize()
+        err = float((y_k - y_p).abs().max())
+        ss_rel = float(((ss_k.double() - ss_p.double()).abs()
+                        / ss_p.double().abs().clamp(min=1e-300)).max())
+        pad_ok = bool(torch.all(y_k[op.dim_dw:] == 0)) and \
+            bool(torch.all(y_k[:, op.dim_up:] == 0))
+        say(f"B1 {name}: max|dy| = {err:.3e} (tol {1e-5 * ymax:.3e}); "
+            f"max panel ss rel diff {ss_rel:.3e} (tol 1e-5); pad exactly 0: "
+            f"{pad_ok}")
+        if not (err <= 1e-5 * ymax and ss_rel <= 1e-5 and pad_ok):
+            raise AssertionError(f"B1 {name} disagrees with its plain version")
+        out[name] = (y_k, err)
+    d_trim = float((out["matvec_runs"][0] - out["matvec_full"][0]).abs().max())
+    say(f"B1 trimmed vs whole-window: max|d| = {d_trim!r} (must be 0); "
+        f"zero tiles skipped {100 * bs.trim_share(pop):.1f}%")
+    if d_trim != 0.0:
+        raise AssertionError("B1 trimmed and whole-window outputs differ")
+    y, r = bs.chain_step(op, v, torch.ones((), device=v.device))
+    nrm = float(y.double().norm())
+    r_err = abs(float(r) - 1.0 / nrm) * nrm
+    say(f"B1 chain_step: rsqrt {float(r):.9e} vs 1/|y| {1.0 / nrm:.9e}, "
+        f"rel diff {r_err:.3e} (tol 1e-6)")
+    if not r_err <= 1e-6:
+        raise AssertionError("chain_step's normalization is off")
+    reps = 50
+    ms_p = cuda_ms(lambda: bs.matvec_bs_padded_plain(pop, v, scale), reps)
+    rows = []
+    for name, trim in (("matvec_runs", True), ("matvec_full", False)):
+        ms_k = cuda_ms(lambda: bs._matvec_padded(op, v, scale, trim=trim),
+                       reps)
+        rows.append((name, out[name][1], ms_k, ms_p))
     return rows
 
 
@@ -292,20 +364,67 @@ def phase3(cfg, sec, op, e0):
     return float(evals[0]), dt
 
 
-def phase4(e_gs):
+def phase3b(cfg, sec, op, e0):
+    """The per-call path: power steps through chain_step (B1a), then the
+    two-stage solve without the chain (B1b under the f32 thick restart)."""
+    import torch
+    from dmft_lanc_ed_tpu_torch.diag import _blocksparse_ground_state
+    from dmft_lanc_ed_tpu_torch.ops import blocksparse as bs
+    from dmft_lanc_ed_tpu_torch.ops import lanczos as lz
+    v = np.random.default_rng(7).standard_normal((op.dim_dw, op.dim_up))
+    vp = bs.to_padded(op, v / np.linalg.norm(v))
+    bs.reset_launch_counts()
+    lz.restart_counts["ground_state"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inv = torch.ones((), device=DEVICE)
+    steps = 64
+    for _ in range(steps):
+        vp, inv = bs.chain_step(op, vp, inv)
+    torch.cuda.synchronize()
+    t_pow = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evals, evecs = _blocksparse_ground_state(cfg, op, sec.dim, 1, ncv=48,
+                                             use_chain=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(bs.launch_counts)
+    restarts = lz.restart_counts["ground_state"]
+    de = abs(float(evals[0]) - e0)
+    say(f"phase 3b: {steps} chain_step power steps in {t_pow:.3f} s; "
+        f"per-call two-stage Egs = {evals[0]:+.12f}, |dE| vs ARPACK = "
+        f"{de:.3e} (gate 1e-10), {dt:.2f} s, {restarts} thick restarts "
+        f"(f32 stage 1 and top-off); launches {counts}")
+    if not (de <= 1e-10 and np.all(np.isfinite(evecs))
+            and np.isfinite(float(inv))):
+        raise AssertionError("per-call two-stage ground state misses the "
+                             "gate")
+    if any(n <= 0 for n in counts.values()):
+        raise AssertionError(f"a B1 kernel never launched: {counts}")
+    return counts, dt
+
+
+def _dmft_cfg(**kw):
+    """Phase 4's DMFT configuration: nbath = 11, T = 0, 2 loops."""
     import dmft_lanc_ed_tpu_torch as pt
+    return pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,), beta=100.0,
+                       lmats=1024, lfit=256, lreal=64, nloop=2,
+                       ed_sectors=True, **kw)
+
+
+def _run_loop(name, cfg, e_gs):
+    """run_dmft on the card with the chain launch counts reset just
+    before; checks launches, finite outputs, dens range and loop 1's Egs
+    against phase 3. Returns (result, chain launch counts, seconds)."""
     from dmft_lanc_ed_tpu_torch.models.hm_bethe import run_dmft
     from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
-    cfg = pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,), beta=100.0,
-                      lmats=1024, lfit=256, lreal=64, nloop=2,
-                      ed_backend="pallas", ed_batch_sectors=False,
-                      ed_sectors=True)
     bc.reset_launch_counts()
     t0 = time.perf_counter()
     res = run_dmft(cfg, device=DEVICE, verbose=False)
+    dt = time.perf_counter() - t0
     counts = dict(bc.launch_counts)
-    say(f"phase 4: run_dmft nbath={NBATH}, {res.iterations} loops in "
-        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    say(f"{name}: run_dmft nbath={NBATH}, {res.iterations} loops in "
+        f"{dt:.1f} s; launches {counts}")
     for ent in res.history:
         say(f"  loop {ent['iloop']}: diag {ent['diag']:.2f} s, gf "
             f"{ent['gf']:.2f} s, fit {ent['fit']:.2f} s, Egs "
@@ -323,18 +442,64 @@ def phase4(e_gs):
     egs1 = res.history[0]["egs"]
     if e_gs is None:
         say("  loop 1 Egs not checked (phase 3 not run)")
-        return counts
-    say(f"  loop 1 Egs {egs1:+.12f} vs phase 3 {e_gs:+.12f}: "
-        f"|d| = {abs(egs1 - e_gs):.3e} (tol 1e-9)")
-    if not abs(egs1 - e_gs) <= 1e-9:
-        raise AssertionError("loop 1 ground state differs from phase 3")
-    return counts
+    else:
+        say(f"  loop 1 Egs {egs1:+.12f} vs phase 3 {e_gs:+.12f}: "
+            f"|d| = {abs(egs1 - e_gs):.3e} (tol 1e-9)")
+        if not abs(egs1 - e_gs) <= 1e-9:
+            raise AssertionError("loop 1 ground state differs from phase 3")
+    return res, counts, dt
+
+
+def phase4(e_gs):
+    """Sectors one by one, through the band-sparse backend."""
+    return _run_loop("phase 4", _dmft_cfg(ed_backend="pallas",
+                                          ed_batch_sectors=False), e_gs)
+
+
+def phase5(e_gs, serial):
+    """The default configuration (ed_backend="auto", batched small
+    sectors); loop 1's Krylov sectors against phase 4's serial solves of
+    the same bath (both loops start from init_bath)."""
+    from dmft_lanc_ed_tpu_torch.ops import batched as bt
+    cfg = _dmft_cfg()
+    if cfg.ed_backend != "auto" or not cfg.ed_batch_sectors:
+        raise AssertionError("phase 5 must run the default configuration")
+    bt.reset_bucket_counts()
+    res, counts, dt = _run_loop("phase 5", cfg, e_gs)
+    buckets = dict(bt.bucket_counts)
+    say(f"  batched: {buckets}")
+    if buckets["buckets"] <= 0:
+        raise AssertionError("no batched bucket was solved")
+    if serial is None:
+        say("  sector energies not checked (phase 4 not run)")
+        return counts, dt
+    ref = {q: (e, k) for q, e, k in serial.history[0]["diag_log"]}
+    log5 = res.history[0]["diag_log"]
+    if sorted(q for q, _, _ in log5) != sorted(ref):
+        raise AssertionError("phase 5 scanned other sectors than phase 4")
+    worst, n_kry = 0.0, 0
+    for q, e, krylov in log5:
+        e_ref, k_ref = ref[q]
+        if krylov != k_ref or len(e) != len(e_ref):
+            raise AssertionError(f"sector {q}: solve kind or count differs")
+        if not krylov:
+            continue
+        n_kry += 1
+        e, e_ref = np.asarray(e), np.asarray(e_ref)
+        worst = max(worst, float((np.abs(e - e_ref)
+                                  / np.maximum(1.0, np.abs(e_ref))).max()))
+    say(f"  loop 1, {n_kry} Krylov sectors: max |dE| / max(1, |E|) vs "
+        f"phase 4 = {worst:.3e} (tol 1e-9)")
+    if not worst <= 1e-9:
+        raise AssertionError("batched sector energies differ from the "
+                             "serial ones")
+    return counts, dt
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4")
-    phases = {int(p) for p in ap.parse_args().phases.split(",")}
+    ap.add_argument("--phases", default="0,1,2,3,3b,4,5")
+    phases = set(ap.parse_args().phases.split(","))
     try:
         import torch
     except ImportError:
@@ -349,30 +514,40 @@ def main():
               "to this script", file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
     try:
         phase0()
-        if 1 in phases:
+        if "1" in phases:
             phase1()
         rows, counts = [], {}
-        e_gs = None
-        if phases & {2, 3}:
+        e_gs = serial = None
+        if phases & {"2", "3", "3b"}:
             cfg, sec, h, op = sector_854k()
             e0, v_gs = host_ground_state(h, sec)
-            if 2 in phases:
+            if "2" in phases:
                 rows = phase2(op, e0, v_gs)
-            if 3 in phases:
+            if "3" in phases:
                 e_gs, _ = phase3(cfg, sec, op, e0)
+            if "3b" in phases:
+                counts.update(phase3b(cfg, sec, op, e0)[0])
             del op
-        if 4 in phases:
-            counts = phase4(e_gs)
+        if "4" in phases:
+            serial, c4, _ = phase4(e_gs)
+            counts.update(c4)
+        if "5" in phases:
+            # the chain kernels' launches are those of phases 4 and 5
+            for k, n in phase5(e_gs, serial)[0].items():
+                counts[k] = counts.get(k, 0) + n
     except Exception:
         traceback.print_exc()
         return 1
     if "jax" in sys.modules or "dmft_lanc_ed_tpu" in sys.modules:
         print("chip_smoke: the JAX package was imported", file=sys.stderr)
         return 1
+    say(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": counts.get(name, 0),
          "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
         for name, err, ms_k, ms_p in rows]}))

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into this package's build directory
+The sources are compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+source, all started together, and linked into one shared library with a
+plain C interface, at first use, into this package's build directory
 (``_build/``, git-ignored), and bound with ctypes: every pointer and the
 stream are ``c_void_p``, every entry point returns ``cudaGetLastError()``
 and :func:`check` raises on anything but 0. The library file name carries
@@ -22,7 +23,7 @@ from typing import Optional
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -51,18 +52,33 @@ def build() -> str:
         with open(p, "rb") as fh:
             digest.update(fh.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"libbs_chain-{digest.hexdigest()[:16]}.so")
+    so = os.path.join(BUILD_DIR, f"libbs_kernels-{digest.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}"
+    nvcc = _nvcc()
     cus = [p for p in srcs if p.endswith(".cu")]
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}"
-                           f"\n{res.stderr}")
-    os.replace(tmp, so)
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in cus]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for p, o in zip(cus, objs)]
+    outs = [(p, proc.communicate()[0], proc.returncode)
+            for p, proc in zip(cus, procs)]
+    failed = [f"{os.path.basename(p)} ({rc}):\n{out}"
+              for p, out, rc in outs if rc != 0]
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", f"{tmp}.tmp", *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stdout}"
+                          f"\n{res.stderr}")
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(f"{tmp}.tmp", so)
     return so
 
 
@@ -78,6 +94,10 @@ def lib() -> ctypes.CDLL:
         cdll.bs_tridiag_chain.argtypes = [vp] * 9 + [i32] * 9 + [vp]
         cdll.bs_cheb_chain.restype = i32
         cdll.bs_cheb_chain.argtypes = [vp] * 8 + [f32, f32] + [i32] * 8 + [vp]
+        cdll.bs_matvec_nblk.restype = i32
+        cdll.bs_matvec_nblk.argtypes = [i32, i32]
+        cdll.bs_matvec.restype = i32
+        cdll.bs_matvec.argtypes = [vp] * 13 + [i32] * 7 + [vp]
         _LIB = cdll
     return _LIB
 

@@ -9,12 +9,8 @@
 // What they compute, on the RCM-permuted sector vector padded to multiples
 // of 128, u[ddp, dup] (f32):
 //   H u = (A B) o u + H_dw,p u + u H_up,p
-// with the separable diagonal A[ddp, R] B[R, dup], the dw hops as banded row
-// slabs dw[ntd, 128, W_dw] (panel i of rows times a window of W_dw rows of u
-// starting at tile clamp(i - d_dw, 0, (ddp - W_dw)/128)), and the up hops as
-// banded column slabs up[ntu, W_up, 128] (a lane window of u starting at
-// clamp((j - d_up) * 128, 0, dup - W_up) times column panel j's slab). The
-// window clamps are those of bs_chain.py:138 and :163.
+// through the panel apply of bs_panel.cuh (the banded slabs, their window
+// clamps, bs_chain.py:138 and :163), over the whole windows.
 //
 // B2/B4 run K plain Lanczos steps (no reorthogonalization) with lazy
 // normalization: vectors are stored unnormalized and their inverse norms
@@ -45,19 +41,13 @@
 // tile per block, 4 x 4 outputs per thread, f32 accumulation over the f32
 // slabs): the same products as the TPU kernels at full f32 fidelity, which
 // meets B4's ~1e-7 contract and therefore B2/B3's split-bf16 ~1.5e-5 one.
-// Tensor cores (3xTF32 or wgmma) and the zero-tile trim are later work.
+// Tensor cores (3xTF32 or wgmma) and the zero-tile trim (bs_matvec.cu
+// has it) are later work for the chains.
 //
 // Every entry point returns cudaGetLastError() of its launches (0 = ok).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bs_panel.cuh"
 
 namespace {
-
-constexpr int BM = 64;        // output rows per block
-constexpr int BN = 64;        // output columns per block
-constexpr int BK = 16;        // contraction depth per shared-memory stage
-constexpr int NT = 256;       // threads per block (16 x 16, 4 x 4 outputs each)
-constexpr int FIN_NT = 256;   // threads of a finish kernel
 
 // per-chain scalar state (double)
 constexpr int S_CUR = 0;      // inverse norm of the vector in plane cur
@@ -65,97 +55,6 @@ constexpr int COUP = 1;       // coefficient of u_prv (tridiag)
 constexpr int CO = 2;         // coefficient of u_cur in pass 1 (tridiag)
 constexpr int S_PRV = 3;      // inverse norm of the vector in plane prv (cheb)
 constexpr int NSTATE = 4;
-
-struct Geo {
-  int ddp, dup, rank, w_dw, d_dw, w_up, d_up;
-};
-
-// acc[4][4] += A[BM x K] * B[K x BN], both row-major (lda, ldb in floats).
-// Every row start and every k0 is a multiple of 4 floats, so the global
-// reads are float4.
-__device__ __forceinline__ void gemm_acc(float acc[4][4],
-                                         const float* __restrict__ A, int lda,
-                                         const float* __restrict__ B, int ldb,
-                                         int K, float (*As)[BM],
-                                         float (*Bs)[BN]) {
-  const int t = threadIdx.x;
-  const int ty = t / 16, tx = t % 16;
-  const int am = t / 4, ak = (t % 4) * 4;     // A tile: 64 rows x 16 k
-  const int bk = t / 16, bn = (t % 16) * 4;   // B tile: 16 k x 64 columns
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const float4 a = *reinterpret_cast<const float4*>(
-        A + (size_t)am * lda + k0 + ak);
-    const float4 b = *reinterpret_cast<const float4*>(
-        B + (size_t)(k0 + bk) * ldb + bn);
-    As[ak + 0][am] = a.x;
-    As[ak + 1][am] = a.y;
-    As[ak + 2][am] = a.z;
-    As[ak + 3][am] = a.w;
-    *reinterpret_cast<float4*>(&Bs[bk][bn]) = b;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// The shared panel apply: acc = (H_p u)[r0:r0+64, c0:c0+64] without the
-// diagonal term (added in the epilogue, where u is read anyway).
-__device__ __forceinline__ void hop_tile(float acc[4][4],
-                                         const float* __restrict__ dw,
-                                         const float* __restrict__ up,
-                                         const float* __restrict__ u,
-                                         const Geo& g, int r0, int c0) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int i = r0 / 128, j = c0 / 128;
-  const int base = min(max(i - g.d_dw, 0), (g.ddp - g.w_dw) / 128) * 128;
-  const int s_up = min(max((j - g.d_up) * 128, 0), g.dup - g.w_up);
-  // dw hops: dw slab rows [64 x W_dw] times u rows base..base+W_dw
-  gemm_acc(acc, dw + ((size_t)i * 128 + (r0 % 128)) * g.w_dw, g.w_dw,
-           u + (size_t)base * g.dup + c0, g.dup, g.w_dw, As, Bs);
-  // up hops: u lane window [64 x W_up] times up slab j columns
-  gemm_acc(acc, u + (size_t)r0 * g.dup + s_up, g.dup,
-           up + (size_t)j * g.w_up * 128 + (c0 % 128), 128, g.w_up, As, Bs);
-}
-
-// separable diagonal (A B)[r, c..c+3]
-__device__ __forceinline__ void diag4(float d[4],
-                                      const float* __restrict__ da,
-                                      const float* __restrict__ db,
-                                      const Geo& g, int r, int c) {
-  d[0] = d[1] = d[2] = d[3] = 0.f;
-  for (int q = 0; q < g.rank; ++q) {
-    const float a = da[(size_t)r * g.rank + q];
-    const float4 b = *reinterpret_cast<const float4*>(db + (size_t)q * g.dup + c);
-    d[0] = fmaf(a, b.x, d[0]);
-    d[1] = fmaf(a, b.y, d[1]);
-    d[2] = fmaf(a, b.z, d[2]);
-    d[3] = fmaf(a, b.w, d[3]);
-  }
-}
-
-// block sum of one double per thread, written by thread 0 to *out
-__device__ __forceinline__ void block_sum_store(double v, double* out) {
-  __shared__ double red[NT];
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *out = red[0];
-}
 
 // MODE 0: Lanczos pass 0 (partials of <u_cur, y>);
 // MODE 1: Chebyshev step (partials of |r|^2).
@@ -178,7 +77,7 @@ panel_step(const float* __restrict__ dw, const float* __restrict__ up,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  hop_tile(acc, dw, up, u, g, r0, c0);
+  hop_tile_full(acc, dw, up, u, g, r0, c0);
 
   float f_cur, f_prv, f_c = 0.f;
   if (MODE == 0) {
@@ -253,26 +152,11 @@ tridiag_pass1(float* __restrict__ planes, const double* __restrict__ state,
                         + blockIdx.y * gridDim.x + blockIdx.x);
 }
 
-// fixed-order sum of one chain's partials (block b = chain b)
-__device__ __forceinline__ double chain_sum(const double* __restrict__ partials,
-                                            int nblk) {
-  __shared__ double red[FIN_NT];
-  const double* pb = partials + (size_t)blockIdx.x * nblk;
-  double s = 0.0;
-  for (int q = threadIdx.x; q < nblk; q += FIN_NT) s += pb[q];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int h = FIN_NT / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
-    __syncthreads();
-  }
-  return red[0];
-}
-
 __global__ void finish_alpha(const double* __restrict__ partials, int nblk,
                              double* __restrict__ state,
                              double* __restrict__ alphas, int kk, int k) {
-  const double dot = chain_sum(partials, nblk);
+  const double dot =
+      fixed_order_sum(partials + (size_t)blockIdx.x * nblk, nblk);
   if (threadIdx.x == 0) {
     double* st = state + (size_t)blockIdx.x * NSTATE;
     const double alpha = st[S_CUR] * dot;
@@ -284,7 +168,8 @@ __global__ void finish_alpha(const double* __restrict__ partials, int nblk,
 __global__ void finish_beta(const double* __restrict__ partials, int nblk,
                             double* __restrict__ state,
                             double* __restrict__ betas, int kk, int k) {
-  const double ss = chain_sum(partials, nblk);
+  const double ss =
+      fixed_order_sum(partials + (size_t)blockIdx.x * nblk, nblk);
   if (threadIdx.x == 0) {
     double* st = state + (size_t)blockIdx.x * NSTATE;
     const double beta = sqrt(ss);
@@ -297,7 +182,8 @@ __global__ void finish_beta(const double* __restrict__ partials, int nblk,
 __global__ void finish_cheb(const double* __restrict__ partials, int nblk,
                             double* __restrict__ state,
                             double* __restrict__ norm_out) {
-  const double ss = chain_sum(partials, nblk);
+  const double ss =
+      fixed_order_sum(partials + (size_t)blockIdx.x * nblk, nblk);
   if (threadIdx.x == 0) {
     double* st = state + (size_t)blockIdx.x * NSTATE;
     const double nrm = sqrt(ss);
@@ -305,12 +191,6 @@ __global__ void finish_cheb(const double* __restrict__ partials, int nblk,
     st[S_CUR] = nrm > 1e-30 ? 1.0 / nrm : 0.0;
     norm_out[blockIdx.x] = nrm;
   }
-}
-
-bool geo_ok(const Geo& g) {
-  return g.ddp > 0 && g.dup > 0 && g.ddp % 128 == 0 && g.dup % 128 == 0
-         && g.w_dw % 128 == 0 && g.w_up % 128 == 0 && g.w_dw > 0
-         && g.w_up > 0 && g.w_dw <= g.ddp && g.w_up <= g.dup && g.rank > 0;
 }
 
 }  // namespace

@@ -1,24 +1,28 @@
 """Sector-scan diagonalization driver (port of ``dmft_lanc_ed_tpu/diag.py``).
 
 Replacement of ED_DIAG.f90 (`diagonalize_impurity` / `ed_diag_d`): scans the
-(Nup, Ndw) sectors serially, runs host LAPACK for dimensions up to
+(Nup, Ndw) sectors, runs host LAPACK for dimensions up to
 `lanc_dim_threshold` and a Krylov solve above it, and collects states into a
 :class:`~.eigenspace.StateList`: the T=0 ground-state window (gs_threshold
 semantics, ED_DIAG.f90:251-263) or the capacity-limited finite-T list, with
 `ed_post_diag`-style adaptation (ED_DIAG.f90:471-605).
 
-Band-sparse sectors (ed_backend "pallas") take the two-stage solve of
-:func:`_blocksparse_ground_state`: a seed from the B2/B3 chain kernels, then
-an f64 polish (and, if needed, a mixed-precision Lanczos top-off).
+Dispatch, as in the JAX package: with ``ed_batch_sectors`` (the default)
+and a dense or band-sparse backend, Krylov sectors of up to
+``ed_batch_dim_max`` states are solved first, stacked in shape buckets
+(:func:`_solve_batched_sectors`, ops/batched.py); the rest, and any bucket
+element left unconverged, are solved one by one. Band-sparse sectors
+(ed_backend "pallas") take the two-stage solve of
+:func:`_blocksparse_ground_state`.
 
-Not ported yet, and raising: ``ed_batch_sectors=True`` (ops/batched.py,
-ROADMAP A3), the per-call matvec path of sectors without the chain (B1),
-``ed_diag_type="full"``, ``lanc_method="dvdson"`` and a device mesh.
+Not ported yet, and raising: ``ed_diag_type="full"``,
+``lanc_method="dvdson"`` and a device mesh.
 """
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -28,8 +32,11 @@ from .bath import Bath
 from .config import EDConfig
 from .eigenspace import EigenState, StateList
 from .hamiltonian import build_sector_hamiltonian, dense_hamiltonian
+from .ops.batched import bucket_key, lanczos_ground_state_bucket
 from .ops.blocksparse import (BlockSparseSectorOp, from_padded,
-                              matvec_bs_exact_padded, matvec_bs_mixed_padded)
+                              matvec_bs_exact_padded, matvec_bs_mixed_padded,
+                              matvec_bs_padded, to_padded)
+from .ops.dense import build_dense_op
 from .ops.bs_chain import _K_BUCKETS, chain_applicable, ground_state_seed
 from .ops.factory import (apply_is_exact, exact_apply, make_sector_op,
                           resolve_backend, resolve_precision)
@@ -86,18 +93,63 @@ def _sector_neigen(cfg: EDConfig, ctl: DiagState, sqn, dim: int) -> int:
     return min(dim, cfg.lanc_nstates_sector)
 
 
+def _solve_batched_sectors(cfg: EDConfig, table: SectorTable, hloc, bath,
+                           ctl: DiagState, h_basis, qns, device) -> Dict:
+    """Pre-solve the small Krylov sectors in shape buckets (ops/batched.py);
+    returns {sqn: (evals, evecs)} for the sectors solved."""
+    buckets: Dict = {}
+    for sqn in qns:
+        dim = table.dim(sqn)
+        neigen = _sector_neigen(cfg, ctl, sqn, dim)
+        if not dim > max(cfg.lanc_dim_threshold, neigen):
+            continue                       # dense path
+        if dim > cfg.ed_batch_dim_max:
+            continue                       # large: serial path
+        ncv = max(min(dim, cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add),
+                  2 * neigen + 16)
+        if dim < ncv:
+            continue                       # basis would exhaust the sector
+        # host-resident build: padding and stacking stay on the host, the
+        # bucket goes to the device in one copy per field
+        op = build_dense_op(cfg, table.sector(sqn), hloc, bath, "cpu",
+                            h_basis=h_basis)
+        buckets.setdefault(bucket_key(op), []).append((sqn, op, neigen))
+
+    results: Dict = {}
+    for bkey, group in buckets.items():
+        neigen = max(g[2] for g in group)
+        min_dim = min(g[1].dim for g in group)
+        # a deeper basis than the serial default: the JAX package measured
+        # m = 48 best for its buckets (fewer restarts beat the ~m^2 CGS2)
+        ncv = max(min(min_dim, max(48, cfg.lanc_ncv_factor * neigen
+                                   + cfg.lanc_ncv_add)), 2 * neigen + 16)
+        sols = lanczos_ground_state_bucket(
+            [g[1] for g in group], neigen, tol=_lanc_tol(cfg, device),
+            precision=resolve_precision(cfg, device), ncv=min(ncv, min_dim),
+            device=device)
+        log.info("batched bucket %s: %d sectors, neigen=%d, %d solved",
+                 bkey[:2], len(group), neigen,
+                 sum(s is not None for s in sols))
+        for (sqn, _, _), sol in zip(group, sols):
+            if sol is not None:
+                results[sqn] = sol
+    return results
+
+
 def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
                               ncv: int, use_chain: Optional[bool] = None):
     """Two-stage ground-state path of the band-sparse backend.
 
-    Stage 1: the chain kernels (ops/bs_chain.py) — a B2 Lanczos
-    tridiagonalization gives the Ritz bounds, a B3 Chebyshev filter
-    bootstrapped from them gives the seed. Stage 2: with a good seed and
-    one wanted state, the f64 Rayleigh-Ritz polish alone (a few guarded
-    calls); otherwise a mixed-precision Lanczos top-off seeded with it plus
-    the polish. Everything runs in the permuted padded space; the final
-    vectors return to the natural order once. Returns (values host f64,
-    vectors [k, dim] host f64)."""
+    Stage 1, where one chain fits (``chain_applicable``): the chain kernels
+    (ops/bs_chain.py) — a B2 Lanczos tridiagonalization gives the Ritz
+    bounds, a B3 Chebyshev filter bootstrapped from them gives the seed.
+    Otherwise the per-call path: f32 thick-restart Lanczos whose apply is
+    one B1 matvec launch per step. Stage 2: with a good chain seed and one
+    wanted state, the f64 Rayleigh-Ritz polish alone (a few guarded calls);
+    otherwise a mixed-precision Lanczos top-off seeded with stage 1's
+    vector plus the polish. Everything runs in the permuted padded space;
+    the final vectors return to the natural order once. Returns (values
+    host f64, vectors [k, dim] host f64)."""
     pop = op.pop
     pshape = pop.padded_shape
 
@@ -112,27 +164,37 @@ def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
 
     if use_chain is None:
         use_chain = chain_applicable(op)
-    if not use_chain:
-        raise NotImplementedError(
-            "band-sparse sector without the chain path needs the per-call "
-            "matvec kernel B1, not ported yet (ROADMAP B1)")
-    theta0, seed_p, eta = ground_state_seed(
-        op, m_tri=96, m_cheb=min(2 * max(ncv, 64), _K_BUCKETS[-1]),
-        return_padded=True)
-    seed = seed_p.double()
-    seed = seed / torch.linalg.vector_norm(seed)
-    if neigen == 1 and eta <= 3e-3:
-        # with a seed this good the f64 polish alone reaches f64 (its
-        # per-call error contraction is ~500x); on persistent failure fall
-        # through to the full top-off with the best vector found
-        for _ in range(3):
-            vals, vecs = refine_eigenpairs(pop, matvec_bs_exact_padded,
-                                           seed[None])
-            r = matvec_bs_exact_padded(pop, vecs[0]) - vals[0] * vecs[0]
-            seed = vecs[0]
-            if float(torch.linalg.vector_norm(r)) <= 1e-7 * max(
-                    1.0, abs(vals[0])):
-                return unpad_all(vals, vecs)
+    if use_chain:
+        theta0, seed_p, eta = ground_state_seed(
+            op, m_tri=96, m_cheb=min(2 * max(ncv, 64), _K_BUCKETS[-1]),
+            return_padded=True)
+        seed = seed_p.double()
+        seed = seed / torch.linalg.vector_norm(seed)
+        if neigen == 1 and eta <= 3e-3:
+            # with a seed this good the f64 polish alone reaches f64 (its
+            # per-call error contraction is ~500x); on persistent failure
+            # fall through to the full top-off with the best vector found
+            for _ in range(3):
+                vals, vecs = refine_eigenpairs(pop, matvec_bs_exact_padded,
+                                               seed[None])
+                r = matvec_bs_exact_padded(pop, vecs[0]) - vals[0] * vecs[0]
+                seed = vecs[0]
+                if float(torch.linalg.vector_norm(r)) <= 1e-7 * max(
+                        1.0, abs(vals[0])):
+                    return unpad_all(vals, vecs)
+    else:
+        # the JAX package's jitted thick restart traces the op, which drops
+        # the trim runs, and so applies the whole-window kernel B1b
+        # (blocksparse.py:660-672); the port keeps that split: this solve
+        # runs B1b, chain_step runs the trimmed B1a (bit-identical outputs)
+        v0n = np.random.default_rng(17).standard_normal(
+            (op.dim_dw, op.dim_up))
+        v0 = to_padded(op, v0n / np.linalg.norm(v0n))
+        _, evecs_p = lanczos_ground_state(
+            pop, partial(matvec_bs_padded, trim=False), pop.dim, neigen,
+            ncv=ncv, tol=max(_lanc_tol(cfg, op.device), 5e-5),
+            dtype=torch.float32, v0=v0, vshape=pshape)
+        seed = torch.as_tensor(evecs_p[0], device=op.device).reshape(pshape)
     vals, vecs_p = lanczos_ground_state(
         pop, matvec_bs_mixed_padded, pop.dim, neigen, ncv=ncv,
         tol=max(_lanc_tol(cfg, op.device), 3e-6), dtype=torch.float64,
@@ -144,10 +206,6 @@ def _check_ported(cfg: EDConfig) -> None:
     if cfg.ed_diag_type == "full":
         raise NotImplementedError("ed_diag_type='full' is not ported yet "
                                   "(ROADMAP A6)")
-    if cfg.ed_batch_sectors:
-        raise NotImplementedError(
-            "ed_batch_sectors=True needs ops/batched.py, not ported yet "
-            "(ROADMAP A3); run with ed_batch_sectors=False")
     if cfg.lanc_method == "dvdson":
         raise NotImplementedError("lanc_method='dvdson' is not ported yet "
                                   "(ROADMAP A5)")
@@ -168,16 +226,26 @@ def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
     state_list = StateList(
         max_size=ctl.lanc_nstates_total if finite_t else None)
 
+    qns = _scan_sectors(cfg, table, ctl)
+    batch_results: Dict = {}
+    if cfg.ed_batch_sectors and \
+            resolve_backend(cfg, device) not in ("ell", "direct"):
+        batch_results = _solve_batched_sectors(cfg, table, hloc, bath, ctl,
+                                               h_basis, qns, device)
+
     oldzero = np.inf
     diag_log = []
     sector_tops = []
-    for sqn in _scan_sectors(cfg, table, ctl):
+    for sqn in qns:
         dim = table.dim(sqn)
         neigen = _sector_neigen(cfg, ctl, sqn, dim)
         sec = table.sector(sqn)
 
         lanc_solve = dim > max(cfg.lanc_dim_threshold, neigen)
-        if lanc_solve:
+        if sqn in batch_results:
+            evals, evecs = batch_results[sqn]
+            evals, evecs = evals[:neigen], evecs[:neigen]
+        elif lanc_solve:
             op, op_apply = make_sector_op(cfg, sec, hloc, bath, device,
                                           h_basis=h_basis)
             ncv = min(dim, cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add)

@@ -58,7 +58,8 @@ def run_dmft(cfg: EDConfig, wband=1.0, h0=None, wmixing: float = 0.5,
              verbose: bool = True, device=None) -> DMFTResult:
     """Full DMFT loop (edn_hm_bethe.f90:104-167 behavior). Each history
     entry also carries the iteration's diag / gf / fit seconds, the GF
-    routing (chain, scan), the packed bath its solve took, and (loop 1)
+    routing (chain, scan), the packed bath its solve took, the sector
+    scan's ``diag_log`` (sector, energies, Krylov-solved), and (loop 1)
     the solve's Sigma and G."""
     norb = cfg.norb
     ebands, dbands, h0v = bethe_bands(norb, wband, h0, n_energies)
@@ -107,6 +108,7 @@ def run_dmft(cfg: EDConfig, wband=1.0, h0=None, wmixing: float = 0.5,
                      egs=res.observables.egs, xmu=xmu,
                      diag=res.timings["diag"], gf=res.timings["gf"],
                      fit=t_fit, routing=res.gf.routing, bath=bath_in,
+                     diag_log=res.state_list.diag_log,
                      time=time.perf_counter() - t0)
         if iloop == 1:
             entry.update(sigma_mats=res.sigma_mats, g_mats=res.g_mats)

@@ -1,5 +1,5 @@
-"""Band-sparse sector operator: host builder and plain applies (port of
-``dmft_lanc_ed_tpu/ops/blocksparse.py``).
+"""Band-sparse sector operator: host builder, the per-call matvec kernel
+B1 and the plain applies (port of ``dmft_lanc_ed_tpu/ops/blocksparse.py``).
 
 The host builder is the reference's: a reverse-Cuthill-McKee reordering of
 each one-spin hop factor concentrates its nonzeros into a band of a few
@@ -8,17 +8,29 @@ permuted grid (dw: row slabs [ntd, 128, W_dw]; up: column slabs
 [ntu, W_up, 128]). The sector diagonal is exactly low-rank and becomes two
 small factors A[ddp, R] B[R, dup] by adaptive cross approximation; the pad
 block gets +PAD_SHIFT through two extra rank terms, so the pad subspace is
-exactly invariant and far above the physics.
+exactly invariant and far above the physics. The per-panel runs of the
+windows' nonzero 128-tiles (:func:`_trim_runs`) are kept on the op, as
+host tuples and as small int32 device tables.
 
-The slabs stay plain f32: the port's kernels (ops/bs_chain.py, CUDA) run
-full f32 products, so the JAX package's bf16 hi/lo split — a workaround
-for Mosaic's dot precisions — is not carried over.
+The slabs stay plain f32: the port's kernels run full f32 products, so the
+JAX package's bf16 hi/lo split — a workaround for Mosaic's dot precisions
+— is not carried over.
+
+B1, hand-written CUDA in ``csrc/bs_matvec.cu``: one fused matvec
+``y = s·((A B)∘v + H_dw,p v + v H_up,p)`` with per-128-row-panel sums of
+squares, either over the trim runs (:func:`matvec_bs_padded`,
+:func:`chain_step`; replaces ``blocksparse.py:_runs_kernel``) or over the
+whole windows (``trim=False``; replaces ``_fused_kernel``). Beside it sits
+its plain PyTorch version :func:`matvec_bs_padded_plain`, through the dense
+padded f32 factors, so a window or run fault of the kernel shows as a
+mismatch. A wrapper runs the plain version only for a tensor on the CPU;
+for a CUDA tensor it launches the kernel or raises, and counts the launch
+in :data:`launch_counts`.
 
 The padded-space exact (f64) and mixed (true-f32 products, f64 diagonal)
 applies serve the Lanczos top-off and the f64 polish of the two-stage
 ground state; they are plain ``torch.matmul``, as the JAX package left
-them to XLA. The per-call fused matvec kernel B1 (``matvec_bs_padded``,
-``chain_step``) is not ported yet (ROADMAP B1) and raises.
+them to XLA.
 """
 from __future__ import annotations
 
@@ -117,6 +129,46 @@ def _banded_slabs(h_p: np.ndarray, n: int, np_: int, axis: int
     return slabs, w, d
 
 
+def _trim_runs(slabs: np.ndarray, axis: int) -> Tuple[Tuple, ...]:
+    """Per-panel contiguous RUNS of nonzero window tiles (the zero-tile
+    trim).
+
+    slabs: [nt, 128, W] (axis=0, dw row slabs) or [nt, W, 128] (axis=1,
+    up column slabs). Returns per-panel tuples of (t0, t1) half-open tile
+    ranges of the window covering every nonzero tile, ascending — trimmed
+    accumulation visits the nonzero tiles in the untrimmed order, and the
+    skipped terms are exact zeros.
+    """
+    nt = slabs.shape[0]
+    w = slabs.shape[2] if axis == 0 else slabs.shape[1]
+    ntw = w // 128
+    out = []
+    for p in range(nt):
+        runs = []
+        for wt in range(ntw):
+            tile = (slabs[p, :, wt * 128:(wt + 1) * 128] if axis == 0
+                    else slabs[p, wt * 128:(wt + 1) * 128, :])
+            if np.any(tile != 0.0):
+                if runs and runs[-1][1] == wt:
+                    runs[-1] = (runs[-1][0], wt + 1)
+                else:
+                    runs.append((wt, wt + 1))
+        out.append(tuple(runs))
+    return tuple(out)
+
+
+def _runs_table(runs: Tuple[Tuple, ...], device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-panel runs -> (offsets [nt + 1], pairs [n, 2]) int32 on
+    `device`: panel p's runs are pairs[offsets[p]:offsets[p + 1]]."""
+    ptr = np.concatenate([[0], np.cumsum([len(r) for r in runs])])
+    tab = np.asarray([t for r in runs for t in r], np.int32).reshape(-1, 2)
+    if not len(tab):
+        tab = np.zeros((1, 2), np.int32)     # no runs at all: never read
+    return (torch.as_tensor(ptr.astype(np.int32), device=device),
+            torch.as_tensor(tab, device=device))
+
+
 @dataclass(frozen=True)
 class BsPaddedOp:
     """Padded-space half of the band-sparse operator: what the chain
@@ -134,6 +186,12 @@ class BsPaddedOp:
     d_dw: int = 0
     w_up: int = 0
     d_up: int = 0
+    # (dw_runs, up_runs): per-panel nonzero-tile runs, host tuples
+    trim_runs: Tuple = ()
+    # device run tables of the trimmed and of the whole windows, each
+    # (dw offsets, dw pairs, up offsets, up pairs) int32 (see _runs_table)
+    runs_trim: Tuple = ()
+    runs_full: Tuple = ()
 
     @property
     def padded_shape(self) -> Tuple[int, int]:
@@ -231,6 +289,10 @@ def build_blocksparse_op(h: SectorHamiltonian, device) -> BlockSparseSectorOp:
 
     dw_slabs, w_dw, d_dw = _banded_slabs(hdw_p, dd, ddp, axis=0)
     up_slabs, w_up, d_up = _banded_slabs(hup_p, du, dup, axis=1)
+    dw_runs = _trim_runs(dw_slabs, axis=0)
+    up_runs = _trim_runs(up_slabs, axis=1)
+    full_dw = (((0, w_dw // 128),),) * (ddp // 128)
+    full_up = (((0, w_up // 128),),) * (dup // 128)
 
     # separable diagonal over the padded grid, pad shift included as two
     # extra rank terms: PAD_SHIFT * (1_pad^dw (x) 1 + 1_phys^dw (x) 1_pad^up)
@@ -272,7 +334,12 @@ def build_blocksparse_op(h: SectorHamiltonian, device) -> BlockSparseSectorOp:
         diag_a=put(diag_a, f32), diag_b=put(diag_b, f32),
         diag_p=put(diag_pp), hup_p=put(hup_pp), hdw_p=put(hdw_pp),
         hup_p32=put(hup_pp, f32), hdw_p32=put(hdw_pp, f32),
-        w_dw=w_dw, d_dw=d_dw, w_up=w_up, d_up=d_up)
+        w_dw=w_dw, d_dw=d_dw, w_up=w_up, d_up=d_up,
+        trim_runs=(dw_runs, up_runs),
+        runs_trim=(*_runs_table(dw_runs, device),
+                   *_runs_table(up_runs, device)),
+        runs_full=(*_runs_table(full_dw, device),
+                   *_runs_table(full_up, device)))
     i64 = torch.int64
     return BlockSparseSectorOp(
         pop=pop, perm_dw=put(perm_dw, i64), perm_up=put(perm_up, i64),
@@ -283,19 +350,119 @@ def build_blocksparse_op(h: SectorHamiltonian, device) -> BlockSparseSectorOp:
 
 
 # --------------------------------------------------------------------------
-# the per-call fused matvec kernel (B1) — not ported yet
+# the per-call fused matvec (B1): plain version, kernel wrapper
 # --------------------------------------------------------------------------
-def matvec_bs_padded(op, v32p: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(
-        "matvec_bs_padded is the per-call fused matvec kernel B1 "
-        "(blocksparse.py:_runs_kernel/_fused_kernel), not ported yet "
-        "(ROADMAP B1)")
+# kernel launches per form since the last reset (one per matvec call)
+launch_counts = {"matvec_runs": 0, "matvec_full": 0}
 
 
-def chain_step(op, v32p: torch.Tensor, inv_norm):
-    raise NotImplementedError(
-        "chain_step runs the per-call fused matvec kernel B1, not ported "
-        "yet (ROADMAP B1)")
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def trim_share(pop) -> float:
+    """Share of the window tiles the trim runs skip (both factors)."""
+    pop = _pop(pop)
+    (dw_runs, up_runs) = pop.trim_runs
+    kept = sum(t1 - t0 for runs in dw_runs + up_runs for t0, t1 in runs)
+    total = len(dw_runs) * pop.w_dw // 128 + len(up_runs) * pop.w_up // 128
+    return 1.0 - kept / total
+
+
+def _hv_plain(pop: BsPaddedOp, u: torch.Tensor) -> torch.Tensor:
+    """H_p u for f32 u [..., ddp, dup] through the padded f32 factors."""
+    d = pop.diag_a @ pop.diag_b
+    return d * u + pop.hdw_p32 @ u + u @ pop.hup_p32
+
+
+def _panel_ss(y: torch.Tensor) -> torch.Tensor:
+    """Per-128-row-panel sums of squares of y [ddp, dup] -> [ntd] f32."""
+    return (y.double() ** 2).reshape(y.shape[0] // 128, -1).sum(1).float()
+
+
+def matvec_bs_padded_plain(pop, v: torch.Tensor, scale
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B1: (scale * H_p v, per-panel sums of squares
+    [ntd] f32) for f32 v [ddp, dup], through the dense padded f32 factors
+    (which hold every skipped tile as exact zeros)."""
+    y = scale * _hv_plain(_pop(pop), v)
+    return y, _panel_ss(y)
+
+
+def _check_cuda_inputs(pop: BsPaddedOp, v: torch.Tensor) -> None:
+    tensors = (v, pop.dw_f32, pop.up_f32, pop.diag_a, pop.diag_b)
+    if any(t.device != v.device for t in tensors):
+        raise ValueError("band-sparse kernel: operator and vector on "
+                         "different devices")
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           for t in tensors):
+        raise ValueError("band-sparse kernel: needs contiguous f32 tensors")
+    if tuple(v.shape[-2:]) != pop.padded_shape:
+        raise ValueError(f"band-sparse kernel: vector shape "
+                         f"{tuple(v.shape)} vs padded operator "
+                         f"{pop.padded_shape}")
+
+
+def _geometry(pop: BsPaddedOp):
+    ddp, dup = pop.padded_shape
+    return (ddp, dup, pop.diag_a.shape[1], pop.w_dw, pop.d_dw, pop.w_up,
+            pop.d_up)
+
+
+def _matvec_padded(op, v32p: torch.Tensor, scale, trim: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1: (scale * H_p v, per-panel sums of squares [ntd] f32) for the
+    permuted padded f32 vector v32p [ddp, dup]; `scale` is a float or a
+    device scalar (no host sync). ``trim`` walks the op's nonzero-tile
+    runs (B1a), else the whole windows (B1b); the two agree bit for bit."""
+    pop = _pop(op)
+    if v32p.device.type == "cpu":
+        return matvec_bs_padded_plain(pop, v32p, scale)
+    if not v32p.is_cuda:
+        raise ValueError(f"matvec_bs_padded: unsupported device "
+                         f"{v32p.device}")
+    from .. import _kernels
+    lib = _kernels.lib()
+    v = v32p.contiguous()
+    _check_cuda_inputs(pop, v)
+    if v.dim() != 2:
+        raise ValueError(f"matvec_bs_padded: one vector [ddp, dup], got "
+                         f"{tuple(v.shape)}")
+    dev = v.device
+    ddp, dup = pop.padded_shape
+    if isinstance(scale, torch.Tensor):
+        s = scale.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
+    else:
+        s = torch.full((1,), float(scale), dtype=torch.float32, device=dev)
+    y = torch.empty_like(v)
+    ss = torch.empty(ddp // 128, dtype=torch.float32, device=dev)
+    partials = torch.empty(lib.bs_matvec_nblk(ddp, dup), dtype=torch.float64,
+                           device=dev)
+    runs = pop.runs_trim if trim else pop.runs_full
+    err = lib.bs_matvec(
+        pop.dw_f32.data_ptr(), pop.up_f32.data_ptr(), pop.diag_a.data_ptr(),
+        pop.diag_b.data_ptr(), v.data_ptr(), y.data_ptr(), s.data_ptr(),
+        partials.data_ptr(), ss.data_ptr(), *(t.data_ptr() for t in runs),
+        *_geometry(pop), torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(err, "bs_matvec")
+    launch_counts["matvec_runs" if trim else "matvec_full"] += 1
+    return y, ss
+
+
+def matvec_bs_padded(op, v32p: torch.Tensor, trim: bool = True
+                     ) -> torch.Tensor:
+    """Unscaled fused matvec H_p v on the permuted padded f32 vector."""
+    return _matvec_padded(op, v32p, 1.0, trim)[0]
+
+
+def chain_step(op, v32p: torch.Tensor, inv_norm
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One normalized power-iteration step in one trimmed kernel call:
+    y = (inv_norm * H_p) v, returning (y, rsqrt(|y|^2 + 1e-30)) as an f32
+    device scalar (no host sync) — feed it back as the next inv_norm."""
+    y, ss = _matvec_padded(op, v32p, inv_norm)
+    return y, torch.rsqrt(ss.double().sum() + 1e-30).float()
 
 
 # --------------------------------------------------------------------------

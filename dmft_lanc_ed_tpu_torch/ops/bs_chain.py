@@ -38,8 +38,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .blocksparse import BsPaddedOp, BlockSparseSectorOp, _pop, from_padded, \
-    to_padded
+from .blocksparse import (BsPaddedOp, BlockSparseSectorOp, _check_cuda_inputs,
+                          _geometry, _hv_plain, _pop, from_padded, to_padded)
 
 # Chebyshev filter degrees are rounded up to these, as the reference's
 # kernel does (its chain length is a static kernel parameter), so a given
@@ -91,12 +91,6 @@ def gf_chain_applicable(op, m: int) -> bool:
 # --------------------------------------------------------------------------
 # plain versions (PyTorch, same recurrences, dense padded f32 factors)
 # --------------------------------------------------------------------------
-def _hv_plain(pop: BsPaddedOp, u: torch.Tensor) -> torch.Tensor:
-    """H_p u for f32 u [..., ddp, dup] through the padded f32 factors."""
-    d = pop.diag_a @ pop.diag_b
-    return d * u + pop.hdw_p32 @ u + u @ pop.hup_p32
-
-
 def _bcast(s: torch.Tensor) -> torch.Tensor:
     return s.float()[:, None, None]
 
@@ -161,25 +155,6 @@ def gf_tridiag_batch_plain(pop: BsPaddedOp, v32p: torch.Tensor, kk: int
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
-def _geometry(pop: BsPaddedOp):
-    ddp, dup = pop.padded_shape
-    return (ddp, dup, pop.diag_a.shape[1], pop.w_dw, pop.d_dw, pop.w_up,
-            pop.d_up)
-
-
-def _check_cuda_inputs(pop: BsPaddedOp, v: torch.Tensor) -> None:
-    tensors = (v, pop.dw_f32, pop.up_f32, pop.diag_a, pop.diag_b)
-    if any(t.device != v.device for t in tensors):
-        raise ValueError("chain kernel: operator and vector on different "
-                         "devices")
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           for t in tensors):
-        raise ValueError("chain kernel: needs contiguous f32 tensors")
-    if tuple(v.shape[-2:]) != pop.padded_shape:
-        raise ValueError(f"chain kernel: vector shape {tuple(v.shape)} vs "
-                         f"padded operator {pop.padded_shape}")
-
-
 def _run_tridiag(pop: BsPaddedOp, v32p: torch.Tensor, kk: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the tridiag chain kernel on nb = v32p.shape[0] chains."""

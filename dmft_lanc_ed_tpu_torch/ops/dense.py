@@ -14,8 +14,12 @@ XLA. This is the GF's small-target operator (gf.py). Two precisions:
   see the package ``__init__``) with the diagonal in f64, ~1e-7 relative.
 
 Every apply takes ``[..., dim]`` (flat) or ``[..., DimDw, DimUp]``
-vectors: a leading batch dimension replaces the JAX ``vmap``. Phonon and
-Jx/Jp terms are not ported (ROADMAP A6) and raise.
+vectors: a leading batch dimension replaces the JAX ``vmap``. A stacked
+op (``ops/batched.stack_ops``: every field [B, ...]) applies to
+[B, DimDw, DimUp] vectors element by element through the same
+broadcasting matmuls; the batched path builds its ops on the host
+(``device="cpu"``) and moves the stack to the card in one copy per
+field. Phonon and Jx/Jp terms are not ported (ROADMAP A6) and raise.
 """
 from __future__ import annotations
 

@@ -30,6 +30,9 @@ log = logging.getLogger("dmft_lanc_ed_tpu_torch")
 
 _EPS = 1e-30
 
+# thick-restart basis builds of lanczos_ground_state since the last reset
+restart_counts = {"ground_state": 0}
+
 
 def _step(op, op_apply, v_prev, v, beta):
     """One plain Lanczos step on [..., dim] vectors (batch-aware)."""
@@ -88,21 +91,25 @@ def tridiag_eigh(alphas, betas) -> Tuple[np.ndarray, np.ndarray]:
 # ground-state solver: thick-restart Lanczos (Rayleigh-Ritz restarted)
 # --------------------------------------------------------------------------
 class _BasisResult(NamedTuple):
-    v_basis: torch.Tensor   # [m, *vshape]
-    t_mat: np.ndarray       # [m, m] projected matrix (upper triangle valid)
-    beta_last: float        # coupling out of the last vector (residual norm)
-    v_next: torch.Tensor    # normalized residual direction (or zeros)
+    v_basis: torch.Tensor   # [b, m, *vshape]
+    t_mat: np.ndarray       # [b, m, m] projected matrices (upper triangle)
+    beta_last: np.ndarray   # [b] coupling out of the last vector (residual)
+    v_next: torch.Tensor    # [b, *vshape] normalized residual (or zeros)
 
 
-def _build_basis_rr(op, prefix, theta0, v_start, m: int, l: int,
-                    op_apply: Callable, fast_proj: bool = False
-                    ) -> _BasisResult:
-    """Extend an l-vector Ritz prefix to an m-vector orthonormal basis.
+def _build_basis_rr(apply_b: Callable, prefix, theta0, v_start, m: int,
+                    l: int, fast_proj: bool = False) -> _BasisResult:
+    """Extend l-vector Ritz prefixes to m-vector orthonormal bases, for b
+    independent elements at once.
 
     Thick-restart Lanczos with CGS2 full reorthogonalization (TRLan): the
     prefix rows are Ritz vectors of the previous restart, so the projected
     matrix is diag(theta0) on the prefix block; T[j, i] = <v_j, H v_i> is
-    recorded from the first-pass orthogonalization coefficients.
+    recorded from the first-pass orthogonalization coefficients. The JAX
+    package's ``vmap`` over a bucket of sectors is the leading axis b here:
+    ``apply_b`` maps [b, *vshape] -> [b, *vshape], and the projections are
+    batched matmuls. prefix [b, l, *vshape], theta0 [b, l], v_start
+    [b, *vshape].
 
     ``fast_proj`` runs the CGS2 projections on a true-f32 shadow of the
     basis (vectors and norms stay f64), as ``ops/lanczos.py:143-174`` of
@@ -110,45 +117,47 @@ def _build_basis_rr(op, prefix, theta0, v_start, m: int, l: int,
     ~1e-7, which the mixed-apply tolerance floor and the f64 polish absorb.
     """
     dtype = v_start.dtype
-    vshape = tuple(v_start.shape)
+    b = v_start.shape[0]
+    vshape = tuple(v_start.shape[1:])
     n = int(np.prod(vshape))
     dev = v_start.device
-    vb = torch.zeros((m, n), dtype=dtype, device=dev)
-    t_mat = torch.zeros((m, m), dtype=dtype, device=dev)
+    vb = torch.zeros((b, m, n), dtype=dtype, device=dev)
+    t_mat = torch.zeros((b, m, m), dtype=dtype, device=dev)
     if l:
-        vb[:l] = prefix.reshape(l, n)
-        t_mat[torch.arange(l), torch.arange(l)] = theta0
+        vb[:, :l] = prefix.reshape(b, l, n)
+        t_mat[:, torch.arange(l), torch.arange(l)] = theta0
     use32 = fast_proj and dtype == torch.float64
     vb32 = vb.float() if use32 else None
 
     def cgs_pass(rows: int, w):
         """One classical GS pass against the first `rows` basis vectors."""
         if rows == 0:
-            return torch.zeros(0, dtype=dtype, device=dev), w
-        if use32:
-            c32 = vb32[:rows] @ w.float()
-            return c32.to(dtype), w - (c32 @ vb32[:rows]).to(dtype)
-        c = vb[:rows] @ w
-        return c, w - c @ vb[:rows]
+            return None, w
+        basis = vb32[:, :rows] if use32 else vb[:, :rows]
+        c = torch.bmm(basis, (w.float() if use32 else w)[..., None])[..., 0]
+        corr = torch.bmm(c[:, None, :], basis)[:, 0]
+        return c.to(dtype), w - corr.to(dtype)
 
-    _, v = cgs_pass(l, v_start.reshape(n))
+    _, v = cgs_pass(l, v_start.reshape(b, n))
     _, v = cgs_pass(l, v)
-    v = v / torch.clamp(torch.linalg.vector_norm(v), min=_EPS)
-    beta = torch.zeros((), dtype=dtype, device=dev)
+    v = v / torch.clamp(torch.linalg.vector_norm(v, dim=1, keepdim=True),
+                        min=_EPS)
+    beta = torch.zeros(b, dtype=dtype, device=dev)
     for i in range(l, m):
-        vb[i] = v
+        vb[:, i] = v
         if use32:
-            vb32[i] = v.float()
-        w = op_apply(op, v.reshape(vshape)).reshape(n).to(dtype)
+            vb32[:, i] = v.float()
+        w = apply_b(v.reshape((b,) + vshape)).reshape(b, n).to(dtype)
         c1, w = cgs_pass(i + 1, w)
-        t_mat[:i + 1, i] = c1
+        t_mat[:, :i + 1, i] = c1
         _, w = cgs_pass(i + 1, w)
-        beta = torch.linalg.vector_norm(w)
+        beta = torch.linalg.vector_norm(w, dim=1)
         ok = beta > 1e-14
-        v = torch.where(ok, w / torch.where(ok, beta, 1.0), 0.0)
+        v = torch.where(ok[:, None], w / torch.where(ok, beta, 1.0)[:, None],
+                        0.0)
         beta = torch.where(ok, beta, 0.0)
-    return _BasisResult(vb.reshape((m,) + vshape), t_mat.cpu().numpy(),
-                        float(beta), v.reshape(vshape))
+    return _BasisResult(vb.reshape((b, m) + vshape), t_mat.cpu().numpy(),
+                        beta.double().cpu().numpy(), v.reshape((b,) + vshape))
 
 
 def _ritz(t_mat: np.ndarray, m: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -199,23 +208,28 @@ def lanczos_ground_state(
         torch.as_tensor(v0, device=dev).to(dtype).reshape(vshape)
     v0 = v0 / torch.linalg.vector_norm(v0)
 
+    def apply_b(v):
+        return op_apply(op, v[0])[None]
+
     prefix = torch.zeros((0,) + vshape, dtype=dtype, device=dev)
     theta0 = torch.zeros((0,), dtype=dtype, device=dev)
     l = 0
     stall = 0
     n_conv_prev = 0
     for _ in range(max_restarts):
-        res = _build_basis_rr(op, prefix, theta0, v0, m, l, op_apply,
-                              fast_proj=fast_proj)
-        theta_np, s_np = _ritz(res.t_mat, m)
-        resid = np.abs(res.beta_last * s_np[m - 1, :])
+        res = _build_basis_rr(apply_b, prefix[None], theta0[None], v0[None],
+                              m, l, fast_proj=fast_proj)
+        restart_counts["ground_state"] += 1
+        basis, beta_last = res.v_basis[0], float(res.beta_last[0])
+        theta_np, s_np = _ritz(res.t_mat[0], m)
+        resid = np.abs(beta_last * s_np[m - 1, :])
         n_conv = 0
         while (n_conv < m and
                resid[n_conv] <= tol * max(abs(theta_np[n_conv]), 1.0)):
             n_conv += 1
         if n_conv >= neigen:
             s = torch.as_tensor(s_np[:, :neigen], dtype=dtype, device=dev)
-            vecs = torch.tensordot(s.T, res.v_basis, dims=1)  # [k, *vshape]
+            vecs = torch.tensordot(s.T, basis, dims=1)  # [k, *vshape]
             vals = theta_np[:neigen]
             if polish_apply is not None:
                 vals, vecs = refine_eigenpairs(op, polish_apply, vecs)
@@ -226,10 +240,10 @@ def lanczos_ground_state(
         # thick restart: keep the lowest l_keep Ritz pairs + the residual
         l = min(l_keep, m - 2)
         s = torch.as_tensor(s_np[:, :l], dtype=dtype, device=dev)
-        prefix = torch.tensordot(s.T, res.v_basis, dims=1)
+        prefix = torch.tensordot(s.T, basis, dims=1)
         theta0 = torch.as_tensor(theta_np[:l], dtype=dtype, device=dev)
-        if res.beta_last > 0.0:
-            v0 = res.v_next
+        if beta_last > 0.0:
+            v0 = res.v_next[0]
         else:
             v0 = random_vec()      # invariant subspace exhausted
         stall = 0 if n_conv > n_conv_prev else stall + 1

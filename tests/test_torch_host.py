@@ -167,18 +167,13 @@ def test_config_cli_values_parse_like_the_input_file():
 
 def test_unported_options_raise():
     cfg = pt.read_input(None, norb=1, nbath=3, bath_type="hybrid")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):          # hybrid baths
         pt.init_bath(cfg)
     cfg = pt.read_input(None, norb=1, nbath=3, lanc_dim_threshold=4)
-    solver = pt.EDSolver(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):          # ops/batched.py
-        solver.solve(solver.init_bath())
-    with pytest.raises(NotImplementedError):          # the ELL backend
-        s2 = pt.EDSolver(cfg.replace(ed_batch_sectors=False), device="cpu")
-        s2.solve(s2.init_bath())
-    from dmft_lanc_ed_tpu_torch.ops.blocksparse import (chain_step,
-                                                        matvec_bs_padded)
-    with pytest.raises(NotImplementedError):
-        matvec_bs_padded(None, None)
-    with pytest.raises(NotImplementedError):
-        chain_step(None, None, None)
+    for bad in (dict(),                               # auto: ELL on the CPU
+                dict(ed_backend="ell"), dict(ed_backend="direct"),
+                dict(ed_backend="dense", lanc_method="dvdson"),
+                dict(ed_backend="dense", ed_diag_type="full")):
+        solver = pt.EDSolver(cfg.replace(**bad), device="cpu")
+        with pytest.raises(NotImplementedError):
+            solver.solve(solver.init_bath())

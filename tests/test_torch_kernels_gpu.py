@@ -1,7 +1,7 @@
-"""The CUDA chain kernels (B2, B3, B4) against their plain PyTorch versions
-on the card. Marked ``gpu``: without a CUDA device every test skips (the
-CPU tests hold the plain versions against the JAX package instead). On a
-machine with a card:
+"""The CUDA kernels (the chains B2, B3, B4 and the per-call matvec B1)
+against their plain PyTorch versions on the card. Marked ``gpu``: without
+a CUDA device every test skips (the CPU tests hold the plain versions
+against the JAX package instead). On a machine with a card:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu -q
 
@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import dmft_lanc_ed_tpu_torch as pt
+from dmft_lanc_ed_tpu_torch.ops import blocksparse as bs
 from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
 from dmft_lanc_ed_tpu_torch.ops.blocksparse import (build_blocksparse_op,
                                                     to_padded)
@@ -98,3 +99,53 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
         bc.tridiag_call(op, v0.double(), 8)
     with pytest.raises(ValueError):
         bc.tridiag_call(op, v0[:, :64].contiguous(), 8)
+    with pytest.raises(ValueError):
+        bs.matvec_bs_padded(op, v0.double())
+    with pytest.raises(ValueError):
+        bs.matvec_bs_padded(op, _starts(op, 2))
+
+
+B1_GEOMETRIES = [(6, (3, 3)), (11, (6, 6))]
+
+
+@pytest.mark.parametrize("nbath,sqn", B1_GEOMETRIES)
+def test_matvec_trimmed_equals_full_window(cuda, nbath, sqn):
+    """B1a (trim runs) and B1b (whole windows) skip only exact-zero
+    products, so they agree bit for bit; the pad stays exactly zero."""
+    op = _op(cuda, nbath, sqn)
+    v = _starts(op, 1, 3)[0]
+    before = dict(bs.launch_counts)
+    y_t, ss_t = bs._matvec_padded(op, v, 0.5, trim=True)
+    y_f, ss_f = bs._matvec_padded(op, v, 0.5, trim=False)
+    assert bs.launch_counts["matvec_runs"] == before["matvec_runs"] + 1
+    assert bs.launch_counts["matvec_full"] == before["matvec_full"] + 1
+    assert torch.equal(y_t, y_f) and torch.equal(ss_t, ss_f)
+    assert bool(torch.all(y_t[op.dim_dw:] == 0))
+    assert bool(torch.all(y_t[:, op.dim_up:] == 0))
+
+
+@pytest.mark.parametrize("nbath,sqn", B1_GEOMETRIES)
+def test_matvec_kernel_matches_plain(cuda, nbath, sqn):
+    """Kernel vs plain version, both true f32 products in different
+    orders: y to 1e-5 x max|y|, per-panel sums of squares 1e-5 relative."""
+    op = _op(cuda, nbath, sqn)
+    v = _starts(op, 1, 4)[0]
+    y_k, ss_k = bs._matvec_padded(op, v, 0.5)
+    y_p, ss_p = bs.matvec_bs_padded_plain(op.pop, v, 0.5)
+    assert float((y_k - y_p).abs().max()) <= 1e-5 * float(y_p.abs().max())
+    assert ss_k.shape == ss_p.shape
+    assert float(((ss_k - ss_p).abs() / ss_p.abs().clamp(min=1e-30)).max()
+                 ) <= 1e-5
+
+
+@pytest.mark.parametrize("nbath,sqn", B1_GEOMETRIES)
+def test_chain_step_normalizes_on_card(cuda, nbath, sqn):
+    op = _op(cuda, nbath, sqn)
+    v = _starts(op, 1, 5)[0]
+    y, r = bs.chain_step(op, v, torch.ones((), device=cuda))
+    assert r.is_cuda and r.dim() == 0
+    nrm = float(y.double().norm())
+    assert abs(float(r) - 1.0 / nrm) <= 1e-6 / nrm
+    y2, _ = bs.chain_step(op, y, r)
+    y_ref, _ = bs.matvec_bs_padded_plain(op.pop, y, r)
+    assert float((y2 - y_ref).abs().max()) <= 1e-5 * float(y_ref.abs().max())
