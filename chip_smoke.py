@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--phases 0,1,2,3,3b,4,5]
+    python3 chip_smoke.py [--phases 0,1,2,3,3b,4,5,6,7]
 
 Phases (all by default; each raises on failure and the script then exits
 nonzero without a result line):
@@ -32,9 +32,31 @@ nonzero without a result line):
    loop 1's energies of every Krylov sector equal phase 4's to
    1e-9 x max(1, |E|), loop 1's Egs equal phase 3's to 1e-9, outputs
    finite, 0 <= dens <= 2.
+6. B5, the dw-sharded matvec, in one process at the 854k sector split over
+   n = 2 shards whose halo'd rows are sliced from the whole vector: each
+   shard against its plain version (y within 1e-5 x max|y|, panel sums of
+   squares 1e-5 relative), the stitched shards against B1b bit for bit,
+   and the time per call of both.
+7. two ranks sharing the card (spawned, gloo transport staged through host
+   memory): (a) the dw-sharded two-stage ground state of the 854k sector
+   (B5 under the f32 thick restart, then the top-off and f64 polish over
+   the sharded dense operator), |dE| <= 1e-9 vs phase 3's ARPACK energy,
+   B5 launched on both ranks (a direct call: its launches are printed,
+   not put in the kernel line); (b) the main path: one ``EDSolver.solve``
+   at nbath = 11 with ``mesh_shape=(2,)`` restricted to the ground-state
+   sector (6,6) (``ed_sectors``, shift 0), one state: Egs equal to phase
+   3's to 1e-9, G(iw) and Sigma(iw) against the one-rank solve of the same
+   bath and sector (gates below), B5 (the diag) and the sharded dense GF
+   route (the (7,6) and (5,6) targets) run on both ranks, both ranks'
+   results identical. Times are two ranks time-sliced on one card, not a
+   multi-card number.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernel table as JSON. Each kernel's bound
+is the larger of its FP32 operations over 67 TFLOP/s and its bytes, each
+input read once and each output written once, over 3.35 TB/s (the
+published H100 SXM peaks), both counted over the nonzero 128 x 128 window
+tiles of the op (its trim runs), the tiles the product needs. The last
+line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
@@ -50,15 +72,28 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CHAIN_SRC = "dmft_lanc_ed_tpu_torch/csrc/bs_chain.cu"
 MATVEC_SRC = "dmft_lanc_ed_tpu_torch/csrc/bs_matvec.cu"
 SOURCE = {"tridiag": CHAIN_SRC, "cheb": CHAIN_SRC, "gf_tridiag": CHAIN_SRC,
-          "matvec_runs": MATVEC_SRC, "matvec_full": MATVEC_SRC}
+          "matvec_runs": MATVEC_SRC, "matvec_full": MATVEC_SRC,
+          "sharded_matvec": MATVEC_SRC}
 REPLACES = {"tridiag": "dmft_lanc_ed_tpu/ops/bs_chain.py:207",
             "cheb": "dmft_lanc_ed_tpu/ops/bs_chain.py:331",
             "gf_tridiag": "dmft_lanc_ed_tpu/ops/bs_chain.py:540",
             "matvec_runs": "dmft_lanc_ed_tpu/ops/blocksparse.py:572",
-            "matvec_full": "dmft_lanc_ed_tpu/ops/blocksparse.py:469"}
+            "matvec_full": "dmft_lanc_ed_tpu/ops/blocksparse.py:469",
+            "sharded_matvec": "dmft_lanc_ed_tpu/parallel/bs_sharded.py:67"}
 NBATH = 11
 HALF = (NBATH + 1) // 2   # the half-filled sector (6,6)
 DEVICE = "cuda"
+NSHARD = 2                # phases 6 and 7: ranks of the dw split
+PEAK_FP32 = 67e12         # FLOP/s, H100 SXM outside the tensor cores
+PEAK_BYTES = 3.35e12      # bytes/s, H100 SXM HBM3
+# phase 7(b) gates, sharded vs one-rank G(iw) and Sigma(iw). The JAX
+# test's 1e-9 and 1e-7 compare two f64 solves; here the one-rank solve runs
+# its large GF targets through the f32 chain kernel B4 and the sharded one
+# through the mixed-precision dense scan, so G agrees to the f32 chain's
+# ~5e-6 (B4 against its plain version on c+|GS>: 3.8e-6) and Sigma = G0^-1
+# - G^-1 to ~10x that; the gates leave a 4x margin
+P7_G_TOL = 2e-5
+P7_SIGMA_TOL = 2e-4
 
 
 def say(*a):
@@ -79,6 +114,41 @@ def cuda_ms(fn, reps=1):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def bound(flops, nbytes):
+    """(least ms, "operations" or "bytes"): the larger of the FP32
+    operations over the card's peak and the bytes over its memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def panel_flops(pop, rows, dw_tiles, up_tiles):
+    """FP32 operations of one H_p u over `rows` rows of the padded grid:
+    dw_tiles / up_tiles 128 x 128 window tiles multiplied (whole or
+    trimmed windows), the separable diagonal and the panel sums."""
+    dup = pop.padded_shape[1]
+    rank = pop.diag_a.shape[1]
+    return (2 * 128 * 128 * (dup * dw_tiles + rows * up_tiles)
+            + (2 * rank + 4) * rows * dup)
+
+
+def kept_tiles(pop, panels=slice(None)):
+    """(dw, up) nonzero 128 x 128 window tiles of the dw panels `panels`
+    and of every up panel (the op's trim runs): the tiles an H u over
+    those panels' rows needs, whatever the kernel's windows."""
+    dw_runs, up_runs = pop.trim_runs
+    return tuple(sum(t1 - t0 for runs in rr for t0, t1 in runs)
+                 for rr in (dw_runs[panels], up_runs))
+
+
+def op_bytes(pop, rows, dw_tiles, up_tiles):
+    """Bytes of the nonzero slab tiles and of the diagonal factors of
+    `rows` rows, f32."""
+    dup = pop.padded_shape[1]
+    rank = pop.diag_a.shape[1]
+    return 4 * (128 * 128 * (dw_tiles + up_tiles) + rows * rank + rank * dup)
 
 
 def phase0():
@@ -212,7 +282,15 @@ def phase2(op, e0, v_gs):
         raise AssertionError("B2 kernel disagrees with its plain version")
     ms_k = cuda_ms(lambda: bc.tridiag_call(op, v0, m)) / m
     ms_p = cuda_ms(lambda: bc.tridiag_chain_plain(pop, v0[None], m)) / m
-    rows.append(("tridiag", err, ms_k, ms_p))
+    ddp, dup = pop.padded_shape
+    tiles = kept_tiles(pop)
+    hu = panel_flops(pop, ddp, *tiles)
+    vec = 4 * ddp * dup
+    # per step: one H u and the recurrence's dots and updates (~8 per
+    # element); the call reads the op and v0 once and writes alpha, beta
+    rows.append(("tridiag", err, ms_k, ms_p,
+                 *bound(hu + 8 * ddp * dup,
+                        (op_bytes(pop, ddp, *tiles) + vec) / m + 8)))
 
     # B3: m = 128 with a filter window from the B2 Ritz bounds; filtered
     # vectors' relative difference <= 1e-3, ground-state overlaps to 1e-4
@@ -246,7 +324,12 @@ def phase2(op, e0, v_gs):
     vdiff = float((vk - vp).abs().max())
     ms_k = cuda_ms(lambda: bc.cheb_call(op, v0, kk, c, 1.0 / e)) / kk
     ms_p = cuda_ms(lambda: bc.cheb_chain_plain(pop, v0, kk, c, 1.0 / e)) / kk
-    rows.append(("cheb", vdiff, ms_k, ms_p))
+    ddp, dup = pop.padded_shape
+    tiles = kept_tiles(pop)
+    hu = panel_flops(pop, ddp, *tiles)
+    rows.append(("cheb", vdiff, ms_k, ms_p,
+                 *bound(hu + 4 * ddp * dup,
+                        (op_bytes(pop, ddp, *tiles) + 8 * ddp * dup) / kk)))
 
     # B4: 4 chains, m = 200 (the main path's lanc_ngfiter). The first 8
     # alpha/beta within 5e-5 * scale, and the continued-fraction G(iw) on
@@ -290,11 +373,17 @@ def phase2(op, e0, v_gs):
         f"{np.abs(g_k - g_p).max():.3e}, max|G| = {np.abs(g_p).max():.3e}")
     ms_k = cuda_ms(lambda: bc.gf_tridiag_call(op, vb, m)) / m
     ms_p = cuda_ms(lambda: bc.gf_tridiag_batch_plain(pop, vb, m)) / m
-    rows.append(("gf_tridiag", err_ab, ms_k, ms_p))
+    ddp, dup = pop.padded_shape
+    tiles = kept_tiles(pop)
+    hu = panel_flops(pop, ddp, *tiles)
+    rows.append(("gf_tridiag", err_ab, ms_k, ms_p,
+                 *bound(nb * (hu + 8 * ddp * dup),
+                        (op_bytes(pop, ddp, *tiles) + nb * 4 * ddp * dup) / m
+                        + 8 * nb)))
     rows += phase2_b1(op, start(1)[0])
-    for name, _, ms_k, ms_p in rows:
+    for name, _, ms_k, ms_p, b_ms, b_by in rows:
         say(f"  {name:11s} per step or call: kernel {ms_k:.4f} ms, plain "
-            f"{ms_p:.4f} ms")
+            f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return rows
 
 
@@ -340,11 +429,16 @@ def phase2_b1(op, v):
         raise AssertionError("chain_step's normalization is off")
     reps = 50
     ms_p = cuda_ms(lambda: bs.matvec_bs_padded_plain(pop, v, scale), reps)
+    ddp, dup = pop.padded_shape
+    # both forms compute the same y: one bound, from the nonzero tiles
+    tiles = kept_tiles(pop)
+    b1 = bound(panel_flops(pop, ddp, *tiles),
+               op_bytes(pop, ddp, *tiles) + 8 * ddp * dup)
     rows = []
     for name, trim in (("matvec_runs", True), ("matvec_full", False)):
         ms_k = cuda_ms(lambda: bs._matvec_padded(op, v, scale, trim=trim),
                        reps)
-        rows.append((name, out[name][1], ms_k, ms_p))
+        rows.append((name, out[name][1], ms_k, ms_p, *b1))
     return rows
 
 
@@ -496,9 +590,180 @@ def phase5(e_gs, serial):
     return counts, dt
 
 
+def phase6(op):
+    """B5 on NSHARD shards of the 854k sector, the halo'd rows sliced from
+    one whole vector: each shard against its plain version, the stitched
+    shards against B1b (whole windows, scale 1) bit for bit."""
+    import torch
+    from dmft_lanc_ed_tpu_torch.ops import blocksparse as bs
+    from dmft_lanc_ed_tpu_torch.parallel import bs_sharded as bsh
+    pop = op.pop
+    v = np.random.default_rng(11).standard_normal((op.dim_dw, op.dim_up))
+    vp = bs.to_padded(op, v / np.linalg.norm(v))
+    shards = [bsh.shard_bs_op(op, NSHARD, d, DEVICE) for d in range(NSHARD)]
+    rows = [bsh.shard_rows(vp, sh) for sh in shards]
+    y_b1, ss_b1 = bs._matvec_padded(op, vp, 1.0, trim=False)
+    ys, sss, err = [], [], 0.0
+    for d, (sh, (v_loc, v_ext)) in enumerate(zip(shards, rows)):
+        y_k, ss_k = bsh._local_call(sh, v_loc, v_ext)
+        y_p, ss_p = bsh._local_call_plain(sh, v_loc, v_ext)
+        torch.cuda.synchronize()
+        e = float((y_k - y_p).abs().max())
+        ymax = float(y_p.abs().max())
+        ss_rel = float(((ss_k.double() - ss_p.double()).abs()
+                        / ss_p.double().abs().clamp(min=1e-300)).max())
+        say(f"B5 shard {d}/{NSHARD} ({sh.local} rows, halo {sh.halo}, window "
+            f"starts {sh.t_tiles.tolist()}): max|dy| = {e:.3e} (tol "
+            f"{1e-5 * ymax:.3e}); max panel ss rel diff {ss_rel:.3e} (tol "
+            f"1e-5); sum y^2 = {float(ss_k.double().sum())!r}")
+        if not (e <= 1e-5 * ymax and ss_rel <= 1e-5):
+            raise AssertionError(f"B5 shard {d} disagrees with its plain "
+                                 "version")
+        err = max(err, e)
+        ys.append(y_k)
+        sss.append(ss_k)
+    same = torch.equal(torch.cat(ys), y_b1) and torch.equal(torch.cat(sss),
+                                                             ss_b1)
+    total = sum(float(t.double().sum()) for t in sss)
+    say(f"B5 stitched vs B1b: bit-identical {same}; sum y^2 over shards "
+        f"{total!r}, B1b {float(ss_b1.double().sum())!r}")
+    if not same:
+        raise AssertionError("stitched B5 differs from B1b")
+    sh, (v_loc, v_ext) = shards[0], rows[0]
+    reps = 50
+    ms_k = cuda_ms(lambda: bsh._local_call(sh, v_loc, v_ext), reps)
+    ms_p = cuda_ms(lambda: bsh._local_call_plain(sh, v_loc, v_ext), reps)
+    dup = pop.padded_shape[1]
+    # shard 0's own panels' nonzero tiles and every up panel's
+    tiles = kept_tiles(pop, slice(0, sh.local // 128))
+    b_ms, b_by = bound(panel_flops(pop, sh.local, *tiles),
+                       op_bytes(pop, sh.local, *tiles)
+                       + 4 * (2 * sh.local + sh.ext) * dup)
+    say(f"  sharded_matvec per call (one shard): kernel {ms_k:.4f} ms, plain "
+        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return [("sharded_matvec", err, ms_k, ms_p, b_ms, b_by)]
+
+
+def _p7_cfg(**kw):
+    """Phase 7(b): nbath = 11, T = 0, the sector (6,6) alone, one state,
+    cut from the 9 sectors within 1 of (6,6) to keep the script's time."""
+    import dmft_lanc_ed_tpu_torch as pt
+    return pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,), beta=100.0,
+                       lmats=1024, lreal=64, ed_backend="pallas",
+                       ed_sectors=True, ed_sectors_shift=0,
+                       lanc_nstates_sector=1, **kw)
+
+
+def _p7_solve(cfg, device):
+    """One restricted solve from init_bath -> (result, seconds)."""
+    import torch
+    import dmft_lanc_ed_tpu_torch as pt
+    solver = pt.EDSolver(cfg, device=device)
+    solver.diag_state.sector_hint = [pt.qn(HALF, HALF)]
+    t0 = time.perf_counter()
+    res = solver.solve(solver.init_bath())
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase7_rank(rank):
+    """One of NSHARD ranks sharing the card: (a) the 854k sharded ground
+    state, (b) the restricted sharded solve; launch counts set to 0 just
+    before each and read just after."""
+    import torch
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import build_blocksparse_op
+    from dmft_lanc_ed_tpu_torch.parallel import bs_sharded as bsh
+    from dmft_lanc_ed_tpu_torch.parallel import production as prod
+    from dmft_lanc_ed_tpu_torch.parallel.mesh import make_mesh
+    from dmft_lanc_ed_tpu_torch.parallel.multihost import rank_device
+    dev = rank_device(DEVICE)
+    mesh = make_mesh(NSHARD, dev)
+    cfg = pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,))
+    sec = pt.SectorTable(cfg).sector(pt.qn(HALF, HALF))
+    h = pt.build_sector_hamiltonian(cfg, sec, np.zeros((1, 1, 1, 1)),
+                                    pt.init_bath(cfg))
+    op = build_blocksparse_op(h, "cpu")
+    bsh.reset_launch_counts()
+    prod.reset_apply_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, vecs = bsh.bs_sharded_ground_state(cfg, op, mesh, 1, ncv=48)
+    torch.cuda.synchronize()
+    out = dict(transport=mesh.transport, device=str(dev),
+               e_a=float(vals[0]), t_a=time.perf_counter() - t0,
+               vec_a=vecs[0][:64].copy(),
+               b5_a=bsh.launch_counts["sharded_matvec"],
+               dense_a=prod.apply_counts["dense_sharded"])
+    bsh.reset_launch_counts()
+    prod.reset_apply_counts()
+    res, t_b = _p7_solve(_p7_cfg(mesh_shape=(NSHARD,)), dev)
+    out.update(t_b=t_b, egs=res.state_list.emin, g_mats=res.g_mats,
+               sigma_mats=res.sigma_mats, timings=res.timings,
+               routing=res.gf.routing,
+               sectors=[q for q, _, _ in res.state_list.diag_log],
+               b5_b=bsh.launch_counts["sharded_matvec"],
+               dense_b=prod.apply_counts["dense_sharded"],
+               gf_b=prod.apply_counts["gf_chains"])
+    return out
+
+
+def phase7(e0, e_gs):
+    """NSHARD spawned ranks sharing the card (phase7_rank), against phase
+    3's energies and the one-rank solve of the same bath and sectors."""
+    from dmft_lanc_ed_tpu_torch.parallel.multihost import run_local_ranks
+    t0 = time.perf_counter()
+    out = run_local_ranks(phase7_rank, NSHARD, device=DEVICE, timeout=600)
+    t_ranks = time.perf_counter() - t0
+    r0 = out[0]
+    say(f"phase 7: {NSHARD} ranks on {r0['device']}, transport "
+        f"{r0['transport']}, {t_ranks:.1f} s with spawn (time-sliced on one "
+        f"card, not a multi-card number)")
+    for r, o in enumerate(out):
+        say(f"  rank {r}: (a) 854k sharded Egs {o['e_a']:+.12f}, |dE| vs "
+            f"ARPACK {abs(o['e_a'] - e0):.3e} (gate 1e-9), {o['t_a']:.2f} s, "
+            f"B5 launches {o['b5_a']} (direct call, not the main path's), "
+            f"top-off sharded dense applies {o['dense_a']}; (b) Egs "
+            f"{o['egs']:+.12f} in {o['t_b']:.2f} s (diag "
+            f"{o['timings']['diag']:.2f} s, gf {o['timings']['gf']:.2f} s), "
+            f"B5 launches {o['b5_b']}, sharded dense applies {o['dense_b']} "
+            f"(diag top-off and GF), sharded GF chains {o['gf_b']}, gf "
+            f"routing {o['routing']}")
+        if not (abs(o["e_a"] - e0) <= 1e-9 and o["b5_a"] > 0):
+            raise AssertionError(f"rank {r}: sharded ground state misses the "
+                                 "gate or never launched B5")
+        if not (o["b5_b"] > 0 and o["gf_b"] > 0):
+            raise AssertionError(f"rank {r}: the sharded solve skipped B5 or "
+                                 "the sharded dense GF route")
+    for o in out[1:]:
+        if not (o["e_a"] == r0["e_a"] and np.array_equal(o["vec_a"],
+                                                         r0["vec_a"])
+                and o["egs"] == r0["egs"]
+                and np.array_equal(o["g_mats"], r0["g_mats"])):
+            raise AssertionError("the ranks' results differ")
+    ref, t_ref = _p7_solve(_p7_cfg(), DEVICE)
+    d_g = float(np.abs(r0["g_mats"] - ref.g_mats).max())
+    d_s = float(np.abs(r0["sigma_mats"] - ref.sigma_mats).max())
+    say(f"  (b) one-rank solve {t_ref:.2f} s, Egs {ref.state_list.emin:+.12f}"
+        f", sectors {len(r0['sectors'])}; sharded vs one-rank: max|dG(iw)| "
+        f"{d_g:.3e}, max|dSigma(iw)| {d_s:.3e} (max|G| "
+        f"{float(np.abs(ref.g_mats).max()):.3e}, max|Sigma| "
+        f"{float(np.abs(ref.sigma_mats).max()):.3e})")
+    ref_e = e0 if e_gs is None else e_gs
+    say(f"  (b) Egs vs phase 3 {ref_e:+.12f}: |d| = "
+        f"{abs(r0['egs'] - ref_e):.3e} (tol 1e-9)")
+    if not abs(r0["egs"] - ref_e) <= 1e-9:
+        raise AssertionError("the sharded solve's Egs differs from phase 3")
+    if not (d_g <= P7_G_TOL and d_s <= P7_SIGMA_TOL):
+        raise AssertionError("the sharded solve's G or Sigma differs from "
+                             "the one-rank solve")
+    # the main path's launches: 7(b)'s, both ranks
+    return {"sharded_matvec": sum(o["b5_b"] for o in out)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,3b,4,5")
+    ap.add_argument("--phases", default="0,1,2,3,3b,4,5,6,7")
     phases = set(ap.parse_args().phases.split(","))
     try:
         import torch
@@ -521,7 +786,8 @@ def main():
             phase1()
         rows, counts = [], {}
         e_gs = serial = None
-        if phases & {"2", "3", "3b"}:
+        e0 = None
+        if phases & {"2", "3", "3b", "6", "7"}:
             cfg, sec, h, op = sector_854k()
             e0, v_gs = host_ground_state(h, sec)
             if "2" in phases:
@@ -530,6 +796,8 @@ def main():
                 e_gs, _ = phase3(cfg, sec, op, e0)
             if "3b" in phases:
                 counts.update(phase3b(cfg, sec, op, e0)[0])
+            if "6" in phases:
+                rows += phase6(op)
             del op
         if "4" in phases:
             serial, c4, _ = phase4(e_gs)
@@ -538,6 +806,8 @@ def main():
             # the chain kernels' launches are those of phases 4 and 5
             for k, n in phase5(e_gs, serial)[0].items():
                 counts[k] = counts.get(k, 0) + n
+        if "7" in phases:
+            counts.update(phase7(e0, e_gs))
     except Exception:
         traceback.print_exc()
         return 1
@@ -549,8 +819,9 @@ def main():
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": counts.get(name, 0),
-         "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
-        for name, err, ms_k, ms_p in rows]}))
+         "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        for name, err, ms_k, ms_p, b_ms, b_by in rows]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -98,6 +98,8 @@ def lib() -> ctypes.CDLL:
         cdll.bs_matvec_nblk.argtypes = [i32, i32]
         cdll.bs_matvec.restype = i32
         cdll.bs_matvec.argtypes = [vp] * 13 + [i32] * 7 + [vp]
+        cdll.bs_sharded_matvec.restype = i32
+        cdll.bs_sharded_matvec.argtypes = [vp] * 15 + [i32] * 8 + [vp]
         _LIB = cdll
     return _LIB
 

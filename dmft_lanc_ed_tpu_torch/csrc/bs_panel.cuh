@@ -80,13 +80,24 @@ __device__ __forceinline__ void gemm_acc(float acc[4][4],
   }
 }
 
+// First row of the dw window of row panel i: the op's window clamp.
+__device__ __forceinline__ int dw_window_base(const Geo& g, int i) {
+  return min(max(i - g.d_dw, 0), (g.ddp - g.w_dw) / 128) * 128;
+}
+
 // The shared panel apply: acc = (H_p u)[r0:r0+64, c0:c0+64] without the
 // diagonal term (added in the epilogue, where u is read anyway), over the
 // runs dw_runs[0 .. 2 n_dw) of dw panel r0/128 and up_runs[0 .. 2 n_up) of
-// up panel c0/128 (pairs t0, t1 in 128-tile units of the window).
+// up panel c0/128 (pairs t0, t1 in 128-tile units of the window). The dw
+// window is the W_dw rows of u_dw from row `base` on; the up contraction
+// reads u's rows r0.. . The single-vector kernels pass u_dw = u and
+// base = dw_window_base(g, r0 / 128); the dw-sharded kernel passes its
+// halo'd rows and a per-panel start from its table.
 __device__ __forceinline__ void hop_tile(float acc[4][4],
                                          const float* __restrict__ dw,
                                          const float* __restrict__ up,
+                                         const float* __restrict__ u_dw,
+                                         int base,
                                          const float* __restrict__ u,
                                          const Geo& g, int r0, int c0,
                                          const int* __restrict__ dw_runs,
@@ -96,14 +107,13 @@ __device__ __forceinline__ void hop_tile(float acc[4][4],
   __shared__ __align__(16) float As[BK][BM];
   __shared__ __align__(16) float Bs[BK][BN];
   const int i = r0 / 128, j = c0 / 128;
-  const int base = min(max(i - g.d_dw, 0), (g.ddp - g.w_dw) / 128) * 128;
   const int s_up = min(max((j - g.d_up) * 128, 0), g.dup - g.w_up);
-  // dw hops: dw slab rows [64 x W_dw] times u rows base..base+W_dw
+  // dw hops: dw slab rows [64 x W_dw] times u_dw rows base..base+W_dw
   const float* dw_rows = dw + ((size_t)i * 128 + (r0 % 128)) * g.w_dw;
   for (int q = 0; q < n_dw; ++q) {
     const int k0 = dw_runs[2 * q] * 128, k1 = dw_runs[2 * q + 1] * 128;
     gemm_acc(acc, dw_rows + k0, g.w_dw,
-             u + (size_t)(base + k0) * g.dup + c0, g.dup, k1 - k0, As, Bs);
+             u_dw + (size_t)(base + k0) * g.dup + c0, g.dup, k1 - k0, As, Bs);
   }
   // up hops: u lane window [64 x W_up] times up slab j columns
   const float* up_cols = up + (size_t)j * g.w_up * 128 + (c0 % 128);
@@ -122,7 +132,8 @@ __device__ __forceinline__ void hop_tile_full(float acc[4][4],
                                               const Geo& g, int r0, int c0) {
   const int dw_run[2] = {0, g.w_dw / 128};
   const int up_run[2] = {0, g.w_up / 128};
-  hop_tile(acc, dw, up, u, g, r0, c0, dw_run, 1, up_run, 1);
+  hop_tile(acc, dw, up, u, dw_window_base(g, r0 / 128), u, g, r0, c0, dw_run,
+           1, up_run, 1);
 }
 
 // separable diagonal (A B)[r, c..c+3]

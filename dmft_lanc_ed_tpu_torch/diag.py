@@ -15,8 +15,15 @@ element left unconverged, are solved one by one. Band-sparse sectors
 (ed_backend "pallas") take the two-stage solve of
 :func:`_blocksparse_ground_state`.
 
-Not ported yet, and raising: ``ed_diag_type="full"``,
-``lanc_method="dvdson"`` and a device mesh.
+With ``cfg.mesh_shape`` and that many ranks running (parallel/), every rank
+runs this scan; Krylov sectors with dim_dw >= ``ed_shard_min_dimdw`` are
+solved dw-sharded over the ranks: through the band-sparse kernel B5 where
+its halo form applies (parallel/bs_sharded.py), else through the sharded
+dense operator (parallel/production.py), each choice logged. Every rank
+ends with the same states.
+
+Not ported yet, and raising: ``ed_diag_type="full"`` and
+``lanc_method="dvdson"``.
 """
 from __future__ import annotations
 
@@ -33,14 +40,20 @@ from .config import EDConfig
 from .eigenspace import EigenState, StateList
 from .hamiltonian import build_sector_hamiltonian, dense_hamiltonian
 from .ops.batched import bucket_key, lanczos_ground_state_bucket
-from .ops.blocksparse import (BlockSparseSectorOp, from_padded,
-                              matvec_bs_exact_padded, matvec_bs_mixed_padded,
-                              matvec_bs_padded, to_padded)
+from .ops.blocksparse import (BlockSparseSectorOp, build_blocksparse_op,
+                              from_padded, matvec_bs_exact_padded,
+                              matvec_bs_mixed_padded, matvec_bs_padded,
+                              to_padded)
 from .ops.dense import build_dense_op
 from .ops.bs_chain import _K_BUCKETS, chain_applicable, ground_state_seed
 from .ops.factory import (apply_is_exact, exact_apply, make_sector_op,
-                          resolve_backend, resolve_precision)
+                          resolve_backend, resolve_device, resolve_precision)
 from .ops.lanczos import lanczos_ground_state, refine_eigenpairs
+from .parallel.bs_sharded import (blocksparse_shardable,
+                                  bs_sharded_ground_state)
+from .parallel.production import (shard_sector_op,
+                                  sharded_dense_ground_state, should_shard,
+                                  solver_mesh)
 from .sectors import SectorQN, SectorTable
 
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
@@ -94,7 +107,8 @@ def _sector_neigen(cfg: EDConfig, ctl: DiagState, sqn, dim: int) -> int:
 
 
 def _solve_batched_sectors(cfg: EDConfig, table: SectorTable, hloc, bath,
-                           ctl: DiagState, h_basis, qns, device) -> Dict:
+                           ctl: DiagState, h_basis, mesh, qns, device
+                           ) -> Dict:
     """Pre-solve the small Krylov sectors in shape buckets (ops/batched.py);
     returns {sqn: (evals, evecs)} for the sectors solved."""
     buckets: Dict = {}
@@ -104,7 +118,9 @@ def _solve_batched_sectors(cfg: EDConfig, table: SectorTable, hloc, bath,
         if not dim > max(cfg.lanc_dim_threshold, neigen):
             continue                       # dense path
         if dim > cfg.ed_batch_dim_max:
-            continue                       # large: serial path
+            continue                       # large: serial/sharded path
+        if should_shard(cfg, mesh, table.sector(sqn).dim_dw, dim):
+            continue
         ncv = max(min(dim, cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add),
                   2 * neigen + 16)
         if dim < ncv:
@@ -209,29 +225,55 @@ def _check_ported(cfg: EDConfig) -> None:
     if cfg.lanc_method == "dvdson":
         raise NotImplementedError("lanc_method='dvdson' is not ported yet "
                                   "(ROADMAP A5)")
-    if cfg.mesh_shape:
-        raise NotImplementedError("a device mesh is not ported yet "
-                                  "(ROADMAP A10)")
+
+
+def _sharded_ground_state(cfg: EDConfig, sqn, sec, hloc, bath, h_basis,
+                          mesh, dim: int, neigen: int, ncv: int, device):
+    """A Krylov sector solved dw-sharded over the mesh (the reference's
+    P-ARPACK over the MPI Dw-split, ED_DIAG.f90:151-171): the band-sparse
+    kernel B5 when its halo form applies to this sector and mesh, else the
+    sharded dense backend, each choice logged. Same result on every
+    rank."""
+    if resolve_backend(cfg, device) == "pallas":
+        h = build_sector_hamiltonian(cfg, sec, hloc, bath, h_basis=h_basis)
+        why_not = blocksparse_shardable(h, mesh.size)
+        if why_not is None:
+            log.info("sector %s (dim %d): dw-sharded band-sparse fused solve "
+                     "on %d devices", sqn, dim, mesh.size)
+            # built on the host: each rank moves only its shard to its card
+            return bs_sharded_ground_state(
+                cfg, build_blocksparse_op(h, "cpu"), mesh, neigen, ncv)
+        log.info("sector %s (dim %d): band-sparse shard path unavailable "
+                 "(%s) — sharded %s backend", sqn, dim, why_not,
+                 "direct" if not cfg.ed_sparse_h else "dense")
+    sop = shard_sector_op(cfg, sec, hloc, bath, h_basis, mesh)
+    # start vector with exact-zero pad rows (the pad subspace is invariant,
+    # parallel/production.pad_dense_op)
+    v0 = sop.pad_flat(np.random.default_rng(17).standard_normal(dim))
+    return sharded_dense_ground_state(sop, neigen, ncv,
+                                      _lanc_tol(cfg, device), v0)
 
 
 def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
                          bath: Bath, ctl: Optional[DiagState] = None,
-                         device="cpu",
+                         device="cuda",
                          h_basis: Optional[np.ndarray] = None) -> StateList:
-    """One full spectrum determination (diagonalize_impurity, ED_DIAG.f90:22)."""
+    """One full spectrum determination (diagonalize_impurity, ED_DIAG.f90:22)
+    on `device` (the card unless the caller asks for "cpu")."""
     _check_ported(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     ctl = ctl or DiagState(lanc_nstates_total=cfg.lanc_nstates_total)
     finite_t = cfg.finite_t
     state_list = StateList(
         max_size=ctl.lanc_nstates_total if finite_t else None)
 
+    mesh = solver_mesh(cfg, device)
     qns = _scan_sectors(cfg, table, ctl)
     batch_results: Dict = {}
     if cfg.ed_batch_sectors and \
             resolve_backend(cfg, device) not in ("ell", "direct"):
         batch_results = _solve_batched_sectors(cfg, table, hloc, bath, ctl,
-                                               h_basis, qns, device)
+                                               h_basis, mesh, qns, device)
 
     oldzero = np.inf
     diag_log = []
@@ -245,6 +287,12 @@ def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
         if sqn in batch_results:
             evals, evecs = batch_results[sqn]
             evals, evecs = evals[:neigen], evecs[:neigen]
+        elif lanc_solve and should_shard(cfg, mesh, sec.dim_dw, dim):
+            ncv = min(dim, cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add)
+            ncv = max(ncv, 2 * neigen + 16)
+            evals, evecs = _sharded_ground_state(
+                cfg, sqn, sec, hloc, bath, h_basis, mesh, dim, neigen,
+                min(ncv, dim), device)
         elif lanc_solve:
             op, op_apply = make_sector_op(cfg, sec, hloc, bath, device,
                                           h_basis=h_basis)

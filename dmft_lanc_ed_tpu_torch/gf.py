@@ -9,7 +9,12 @@ by target sector (:class:`_ExcBatcher`):
 
 - targets with dim >= ``ed_gf_chain_min_dim`` of the band-sparse backend run
   the B4 chain kernel (:func:`~.ops.bs_chain.gf_tridiag_batch`);
-- smaller targets run a batched Lanczos scan over the dense operator.
+- smaller targets run a batched Lanczos scan over the dense operator;
+- with ``cfg.mesh_shape`` and that many ranks running, targets with
+  dim_dw >= ``ed_shard_min_dimdw`` run the batched scan over the dw-sharded
+  dense operator (parallel/production.py), each rank holding its rows of
+  the chains (the reference's scattered vectors, ED_GF_NORMAL.f90:224-238);
+  they bypass B4, as in the JAX package.
 
 The tiny tridiagonal eigenproblems run on host LAPACK. Conventions as in
 the reference: pole contribution peso/(z - isign*(lambda_j - E_i)),
@@ -31,7 +36,10 @@ from .bath import Bath
 from .bath_functions import invg0_bath
 from .config import EDConfig
 from .eigenspace import StateList
+from .ops.factory import resolve_device
 from .ops.lanczos import lanczos_tridiag_batched, tridiag_eigh
+from .parallel.production import (ShardedSectorOp, apply_counts,
+                                  shard_sector_op, should_shard, solver_mesh)
 from .sectors import Sector, SectorQN, SectorTable, op_map
 
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
@@ -104,23 +112,27 @@ def apply_op(cfg: EDConfig, sec_from: Sector, sec_to: Sector, vec,
 
 
 class HCache:
-    """Per-solve cache of target-sector operators on `device`: (op, apply)
-    pairs from the backend factory, built once per sector. Under the
-    band-sparse backend, targets below ``ed_gf_chain_min_dim`` get the dense
-    operator (its apply is the same mixed contract as the band-sparse flat
-    apply)."""
+    """Per-solve cache of target-sector operators on `device` (the card
+    unless the caller asks for "cpu"): (op, apply) pairs from the backend
+    factory, built once per sector. Under the band-sparse backend, targets
+    below ``ed_gf_chain_min_dim`` get the dense operator (its apply is the
+    same mixed contract as the band-sparse flat apply). With a mesh,
+    :meth:`sharded` gives the dw-sharded dense operator of a large
+    target."""
 
     def __init__(self, cfg: EDConfig, table: SectorTable, hloc, bath: Bath,
-                 device="cpu", h_basis=None):
+                 device="cuda", h_basis=None):
         from .ops.factory import resolve_backend
         self.cfg = cfg
         self.table = table
         self.hloc = hloc
         self.bath = bath
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.h_basis = h_basis
         self.backend = resolve_backend(cfg, self.device)
+        self.mesh = solver_mesh(cfg, self.device)
         self._cache: Dict[SectorQN, tuple] = {}
+        self._sharded: Dict[SectorQN, ShardedSectorOp] = {}
 
     def _build(self, sec: Sector):
         from .ops.factory import _DENSE_APPLY, make_sector_op, \
@@ -138,6 +150,16 @@ class HCache:
         if sqn not in self._cache:
             self._cache[sqn] = self._build(self.table.sector(sqn))
         return self._cache[sqn]
+
+    def sharded(self, sqn: SectorQN):
+        """ShardedSectorOp for the sector, or None when unsharded."""
+        sec = self.table.sector(sqn)
+        if not should_shard(self.cfg, self.mesh, sec.dim_dw, sec.dim):
+            return None
+        if sqn not in self._sharded:
+            self._sharded[sqn] = shard_sector_op(
+                self.cfg, sec, self.hloc, self.bath, self.h_basis, self.mesh)
+        return self._sharded[sqn]
 
 
 class _ExcBatcher:
@@ -172,12 +194,24 @@ class _ExcBatcher:
         from .ops.bs_chain import gf_chain_applicable, gf_tridiag_batch
         n_chain = n_scan = 0
         for jqn, tasks in self.groups.items():
-            op, op_apply = self.hcache(jqn)
             dim = tasks[0][0].shape[0]
             log.debug("gf batch: sector %s, %d excitations, dim %d",
                       jqn, len(tasks), dim)
             m = min(dim, self.cfg.lanc_ngfiter)
             vs = np.stack([t[0] for t in tasks])
+            sop = self.hcache.sharded(jqn)
+            if sop is not None:
+                # this rank's rows of every chain of the target, summed
+                # over the ranks at each projection
+                n_scan += len(tasks)
+                apply_counts["gf_chains"] += len(tasks)
+                v0 = sop.pad_flat_batch(vs).reshape(len(tasks), -1)
+                a_b, b_b = lanczos_tridiag_batched(
+                    sop, v0, m, ShardedSectorOp.apply_flat,
+                    reduce=sop.mesh.allreduce)
+                self._accumulate(tasks, a_b, b_b)
+                continue
+            op, op_apply = self.hcache(jqn)
             if (isinstance(op, BlockSparseSectorOp)
                     and dim >= self.cfg.ed_gf_chain_min_dim
                     and gf_chain_applicable(op, m)):

@@ -5,18 +5,26 @@ drivers/edn_hm_bethe.f90).
 N-band Hubbard with semicircular DOS: full DMFT self-consistency with chi2
 bath fitting, linear or Broyden mixing, optional fixed-density mu search,
 and the exact Bethe shortcut Delta = (D/2)^2 G (betheSC flag). The impurity
-solves run on ``device``; the lattice, mixing and fit layers on the host.
+solves run on ``device``, the card by default (``device=cpu`` to run
+without one); the lattice, mixing and fit layers on the host.
 
 Usage:
     python -m dmft_lanc_ed_tpu_torch.models.hm_bethe [inputfile] \\
-        [NAME=value ...] [device=cuda]
+        [NAME=value ...] [device=cpu]
+    torchrun --nproc-per-node N -m dmft_lanc_ed_tpu_torch.models.hm_bethe \\
+        [inputfile] mesh_shape=N [NAME=value ...]
 or programmatically:  run_dmft(cfg, device="cuda") -> DMFTResult
+
+Under torchrun every rank runs the loop, sharding the large sectors of
+each solve over the ranks (``mesh_shape``); each rank computes on its own
+card, ``cuda:{LOCAL_RANK % cards}``, and rank 0 prints.
 """
 from __future__ import annotations
 
 import ast
 import dataclasses
 import logging
+import os
 import sys
 import time
 from dataclasses import dataclass, field
@@ -55,7 +63,7 @@ class DMFTResult:
 def run_dmft(cfg: EDConfig, wband=1.0, h0=None, wmixing: float = 0.5,
              bethe_sc: bool = False, broyden: bool = False,
              n_energies: int = 500, bath0: Optional[np.ndarray] = None,
-             verbose: bool = True, device=None) -> DMFTResult:
+             verbose: bool = True, device="cuda") -> DMFTResult:
     """Full DMFT loop (edn_hm_bethe.f90:104-167 behavior). Each history
     entry also carries the iteration's diag / gf / fit seconds, the GF
     routing (chain, scan), the packed bath its solve took, the sector
@@ -168,7 +176,21 @@ def main(argv=None):
         else:
             path = arg
     cfg = read_input(path, **overrides)
-    result = run_dmft(cfg, **extra)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # launched by torchrun: join the ranks, compute on this rank's card
+        import torch.distributed as dist
+        from ..parallel.multihost import init_multihost, rank_device
+        device = extra.get("device", "cuda")
+        init_multihost(device=device)
+        extra["device"] = rank_device(device)
+        try:
+            result = run_dmft(cfg, **extra)
+        finally:
+            dist.destroy_process_group()
+        if int(os.environ["RANK"]) != 0:
+            return result
+    else:
+        result = run_dmft(cfg, **extra)
     print(f"converged={result.converged} iterations={result.iterations} "
           f"error={result.error:.3e}")
     print(f"dens={result.dens} docc={result.docc} ekin={result.ekin:.6f}")

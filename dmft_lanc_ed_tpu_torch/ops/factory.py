@@ -34,6 +34,18 @@ _DENSE_APPLY = {"f64": matvec_dense_flat,
                 "mixed": matvec_dense_mixed_flat}
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. The entry points take the card
+    by default; without one this raises instead of running on the CPU,
+    which a caller asks for with device="cpu"."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r}: no CUDA device is "
+                           "available; pass device=\"cpu\" to run on the "
+                           "CPU")
+    return dev
+
+
 def _on_cuda(device) -> bool:
     return torch.device(device).type == "cuda"
 

@@ -12,7 +12,15 @@ Replaces the reference's P-ARPACK / plain-Lanczos layer (SF_SP_LINALG
   (:func:`refine_eigenpairs`).
 
 Operators are ``(op, op_apply)`` pairs with ``op_apply(op, v) -> H v`` on
-torch tensors living on the op's device. The breakdown guards use
+torch tensors living on the op's device.
+
+Sharded vectors: with ``reduce=`` (a callable that sums a tensor over the
+ranks of a dw-row-sharded solve, :meth:`~..parallel.mesh.DwMesh.allreduce`)
+every inner product and norm is a local sum followed by ``reduce``, the
+port of the JAX package's ``sharding=`` (its partitioner's psums). Every
+rank then holds the same bits of every projection, so every rank takes the
+same host decisions. Without it the sums are the unsharded ones, in the
+unchanged order. The breakdown guards use
 ``torch.where``, so a thick-restart basis build synchronizes with the host
 twice per restart (the projected matrix and the residual norm), never per
 step; a GF tridiagonalization once per chain. The small eigenproblems run
@@ -34,35 +42,48 @@ _EPS = 1e-30
 restart_counts = {"ground_state": 0}
 
 
-def _step(op, op_apply, v_prev, v, beta):
+def _norm(w: torch.Tensor, reduce: Optional[Callable], dim=-1,
+          keepdim: bool = False) -> torch.Tensor:
+    """2-norm over `dim`; over the ranks too when `reduce` is given."""
+    if reduce is None:
+        return torch.linalg.vector_norm(w, dim=dim, keepdim=keepdim)
+    sq = (w * w).sum() if dim is None else (w * w).sum(dim, keepdim=keepdim)
+    return torch.sqrt(reduce(sq))
+
+
+def _step(op, op_apply, v_prev, v, beta, reduce=None):
     """One plain Lanczos step on [..., dim] vectors (batch-aware)."""
     w = op_apply(op, v) - beta[..., None] * v_prev
     alpha = (v * w).sum(-1)
+    if reduce is not None:
+        alpha = reduce(alpha)
     w = w - alpha[..., None] * v
-    beta_new = torch.linalg.vector_norm(w, dim=-1)
+    beta_new = _norm(w, reduce)
     ok = beta_new > _EPS
     v_new = torch.where(ok[..., None],
                         w / torch.where(ok, beta_new, 1.0)[..., None], 0.0)
     beta_new = torch.where(ok, beta_new, 0.0)
-    alive = torch.linalg.vector_norm(v, dim=-1) > 0.5   # unit or exactly 0
+    alive = _norm(v, reduce) > 0.5                      # unit or exactly 0
     alpha = torch.where(alive, alpha, 0.0)
     return v, v_new, beta_new, alpha
 
 
 def lanczos_tridiag_batched(op, v0_batch: torch.Tensor, m: int,
-                            op_apply: Callable
+                            op_apply: Callable,
+                            reduce: Optional[Callable] = None
                             ) -> Tuple[np.ndarray, np.ndarray]:
     """m-step tridiagonalization of B chains: v0_batch [B, dim] normalized
     -> (alphas, betas) [B, m] host f64, with betas[:, 0] == 0 and betas[:, i]
     the coupling step i-1 <-> i (the (alanc, blanc) layout of
     ED_GF_NORMAL.f90:633-637). A chain whose invariant subspace is
-    exhausted (beta = 0) zeros out and contributes zero-weight poles."""
+    exhausted (beta = 0) zeros out and contributes zero-weight poles.
+    With ``reduce``, v0_batch holds this rank's rows of each chain."""
     v = v0_batch
     v_prev = torch.zeros_like(v)
     beta = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
     alphas, betas = [], []
     for _ in range(m):
-        v_prev, v, beta, alpha = _step(op, op_apply, v_prev, v, beta)
+        v_prev, v, beta, alpha = _step(op, op_apply, v_prev, v, beta, reduce)
         alphas.append(alpha)
         betas.append(beta)
     a = torch.stack(alphas, -1).double().cpu().numpy()
@@ -98,7 +119,8 @@ class _BasisResult(NamedTuple):
 
 
 def _build_basis_rr(apply_b: Callable, prefix, theta0, v_start, m: int,
-                    l: int, fast_proj: bool = False) -> _BasisResult:
+                    l: int, fast_proj: bool = False,
+                    reduce: Optional[Callable] = None) -> _BasisResult:
     """Extend l-vector Ritz prefixes to m-vector orthonormal bases, for b
     independent elements at once.
 
@@ -115,6 +137,7 @@ def _build_basis_rr(apply_b: Callable, prefix, theta0, v_start, m: int,
     basis (vectors and norms stay f64), as ``ops/lanczos.py:143-174`` of
     the JAX package does on accelerators: the orthogonality floor becomes
     ~1e-7, which the mixed-apply tolerance floor and the f64 polish absorb.
+    ``reduce`` sums the projections and norms over the ranks.
     """
     dtype = v_start.dtype
     b = v_start.shape[0]
@@ -135,13 +158,14 @@ def _build_basis_rr(apply_b: Callable, prefix, theta0, v_start, m: int,
             return None, w
         basis = vb32[:, :rows] if use32 else vb[:, :rows]
         c = torch.bmm(basis, (w.float() if use32 else w)[..., None])[..., 0]
+        if reduce is not None:
+            c = reduce(c)
         corr = torch.bmm(c[:, None, :], basis)[:, 0]
         return c.to(dtype), w - corr.to(dtype)
 
     _, v = cgs_pass(l, v_start.reshape(b, n))
     _, v = cgs_pass(l, v)
-    v = v / torch.clamp(torch.linalg.vector_norm(v, dim=1, keepdim=True),
-                        min=_EPS)
+    v = v / torch.clamp(_norm(v, reduce, dim=1, keepdim=True), min=_EPS)
     beta = torch.zeros(b, dtype=dtype, device=dev)
     for i in range(l, m):
         vb[:, i] = v
@@ -151,7 +175,7 @@ def _build_basis_rr(apply_b: Callable, prefix, theta0, v_start, m: int,
         c1, w = cgs_pass(i + 1, w)
         t_mat[:, :i + 1, i] = c1
         _, w = cgs_pass(i + 1, w)
-        beta = torch.linalg.vector_norm(w, dim=1)
+        beta = _norm(w, reduce, dim=1)
         ok = beta > 1e-14
         v = torch.where(ok[:, None], w / torch.where(ok, beta, 1.0)[:, None],
                         0.0)
@@ -180,6 +204,8 @@ def lanczos_ground_state(
     v0: Optional[torch.Tensor] = None,
     vshape: Optional[Tuple[int, ...]] = None,
     polish_apply: Optional[Callable] = None,
+    reduce: Optional[Callable] = None,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Lowest `neigen` eigenpairs of the operator (replaces ARPACK `sp_eigh`).
 
@@ -188,7 +214,13 @@ def lanczos_ground_state(
     With ``polish_apply`` (an f64-exact apply), eigenpairs from a
     mixed-precision run are refined by :func:`refine_eigenpairs`.
 
-    Returns (energies [k], vectors [k, dim] host f64) ascending, k == neigen.
+    Sharded (``reduce`` given, ``shard = (rank, ranks)``): `vshape` is this
+    rank's block of rows of a vector of ``ranks * vshape[0]`` rows, `dim`
+    the global dimension; a random (re)start is the same global draw on
+    every rank, of which each takes its own rows.
+
+    Returns (energies [k], vectors [k, prod(vshape)] host f64) ascending,
+    k == neigen.
     """
     vshape = tuple(vshape) if vshape is not None else (dim,)
     dev = op.device
@@ -200,13 +232,17 @@ def lanczos_ground_state(
     l_keep = min(max(2 * neigen, neigen + 4), max(m - 4, 1))
     rng = np.random.default_rng(seed)
 
+    rank, ranks = shard
+
     def random_vec():
-        return torch.as_tensor(rng.standard_normal(vshape), dtype=dtype,
+        rows = vshape[0]
+        v = rng.standard_normal((ranks * rows,) + vshape[1:])
+        return torch.as_tensor(v[rank * rows:(rank + 1) * rows], dtype=dtype,
                                device=dev)
 
     v0 = random_vec() if v0 is None else \
         torch.as_tensor(v0, device=dev).to(dtype).reshape(vshape)
-    v0 = v0 / torch.linalg.vector_norm(v0)
+    v0 = v0 / _norm(v0, reduce, dim=None)
 
     def apply_b(v):
         return op_apply(op, v[0])[None]
@@ -218,7 +254,7 @@ def lanczos_ground_state(
     n_conv_prev = 0
     for _ in range(max_restarts):
         res = _build_basis_rr(apply_b, prefix[None], theta0[None], v0[None],
-                              m, l, fast_proj=fast_proj)
+                              m, l, fast_proj=fast_proj, reduce=reduce)
         restart_counts["ground_state"] += 1
         basis, beta_last = res.v_basis[0], float(res.beta_last[0])
         theta_np, s_np = _ritz(res.t_mat[0], m)
@@ -232,7 +268,8 @@ def lanczos_ground_state(
             vecs = torch.tensordot(s.T, basis, dims=1)  # [k, *vshape]
             vals = theta_np[:neigen]
             if polish_apply is not None:
-                vals, vecs = refine_eigenpairs(op, polish_apply, vecs)
+                vals, vecs = refine_eigenpairs(op, polish_apply, vecs,
+                                               reduce=reduce)
             vecs_flat = vecs.reshape(neigen, -1).double().cpu().numpy()
             order = np.argsort(vals)
             return np.asarray(vals)[order], vecs_flat[order]
@@ -265,7 +302,8 @@ _DROP_PIN = 1.0e12     # projected-diagonal pin for rank-dropped directions
 
 
 def refine_eigenpairs(op, op_apply: Callable, vecs: torch.Tensor,
-                      steps: int = 2, max_rounds: int = 3
+                      steps: int = 2, max_rounds: int = 3,
+                      reduce: Optional[Callable] = None
                       ) -> Tuple[np.ndarray, torch.Tensor]:
     """f64 Rayleigh-Ritz polish of approximate eigenpairs.
 
@@ -275,11 +313,12 @@ def refine_eigenpairs(op, op_apply: Callable, vecs: torch.Tensor,
     values stabilize to 1e-13 relative or ``max_rounds``. An input
     eigenvector with error eta returns with eigenvalue error O(eta^2).
     Returns (values host f64 [k], vectors f64 [k, *vshape] on the device).
+    With ``reduce``, vecs are this rank's rows.
     """
     vals_prev = None
     vals = None
     for _ in range(max_rounds):
-        vals, vecs = _refine_once(op, op_apply, vecs, steps)
+        vals, vecs = _refine_once(op, op_apply, vecs, steps, reduce)
         if vals_prev is not None and np.all(
                 np.abs(vals - vals_prev) <= 1e-13 *
                 np.maximum(np.abs(vals), 1.0)):
@@ -288,7 +327,8 @@ def refine_eigenpairs(op, op_apply: Callable, vecs: torch.Tensor,
     return vals, vecs
 
 
-def _refine_project(op, vecs: torch.Tensor, steps: int, op_apply: Callable):
+def _refine_project(op, vecs: torch.Tensor, steps: int, op_apply: Callable,
+                    reduce: Optional[Callable] = None):
     """Block power basis + CGS2 + projection (device half of the polish).
 
     A candidate whose orthogonal remainder falls below 1e-10 of its own
@@ -302,16 +342,20 @@ def _refine_project(op, vecs: torch.Tensor, steps: int, op_apply: Callable):
     vshape = tuple(vecs.shape[1:])
     rows, oks, h_of_row = [], [], {}
 
+    def dot(b, w):
+        d = (b * w).sum()
+        return d if reduce is None else reduce(d)
+
     def cgs2(w):
         for _ in range(2):
             for b in rows:
-                w = w - (b * w).sum() * b
+                w = w - dot(b, w) * b
         return w
 
     def accept(cand):
-        cand_nrm = torch.linalg.vector_norm(cand)
+        cand_nrm = _norm(cand, reduce, dim=None)
         w = cgs2(cand)
-        nrm = torch.linalg.vector_norm(w)
+        nrm = _norm(w, reduce, dim=None)
         ok = nrm > 1e-10 * torch.clamp(cand_nrm, min=1.0)
         rows.append(torch.where(ok, w / torch.where(ok, nrm, 1.0), 0.0))
         oks.append(ok)
@@ -333,16 +377,19 @@ def _refine_project(op, vecs: torch.Tensor, steps: int, op_apply: Callable):
     hb = torch.stack([h_of_row[i] for i in range(r)])
     okv = torch.stack(oks)
     a_mat = b_mat.reshape(r, -1) @ hb.reshape(r, -1).T
+    if reduce is not None:
+        a_mat = reduce(a_mat)
     a_mat = 0.5 * (a_mat + a_mat.T)
     a_mat = torch.where(okv[:, None] & okv[None, :], a_mat, 0.0) \
         + torch.diag(torch.where(okv, 0.0, _DROP_PIN).to(a_mat.dtype))
     return b_mat, a_mat.cpu().numpy(), okv
 
 
-def _refine_once(op, op_apply: Callable, vecs: torch.Tensor, steps: int
+def _refine_once(op, op_apply: Callable, vecs: torch.Tensor, steps: int,
+                 reduce: Optional[Callable] = None
                  ) -> Tuple[np.ndarray, torch.Tensor]:
     k = vecs.shape[0]
-    b_mat, a_mat, _ = _refine_project(op, vecs, steps, op_apply)
+    b_mat, a_mat, _ = _refine_project(op, vecs, steps, op_apply, reduce)
     vals, s = np.linalg.eigh(a_mat)
     if vals[k - 1] >= 0.5 * _DROP_PIN:
         log.warning("refine_eigenpairs: rank-dropped basis leaves < %d "
@@ -350,6 +397,5 @@ def _refine_once(op, op_apply: Callable, vecs: torch.Tensor, steps: int
                     "truncated", k)
     s_cols = torch.as_tensor(s[:, :k], dtype=b_mat.dtype, device=b_mat.device)
     out = torch.tensordot(s_cols.T, b_mat, dims=1)
-    nrm = torch.linalg.vector_norm(out.reshape(k, -1), dim=1)
-    nrm = torch.clamp(nrm, min=1e-200)
+    nrm = torch.clamp(_norm(out.reshape(k, -1), reduce, dim=1), min=1e-200)
     return vals[:k], out / nrm.reshape((k,) + (1,) * (out.ndim - 1))

@@ -7,8 +7,10 @@ The call sequence inside `solve` mirrors ed_solve_single
     set bath -> diagonalize_impurity -> build GF -> observables
              -> local_energy -> Dyson self-energy
 
-on the solver's ``device``: the sector operators and Krylov chains live
-there; the sector tables, eigenstates, GF poles and frequency-grid math
+on the solver's ``device`` — the card unless the caller asks for
+``device="cpu"``; without a card the solver raises rather than fall back
+to the CPU. The sector operators and Krylov chains live there; the sector
+tables, eigenstates, GF poles and frequency-grid math
 live on the host. Frequency grids match allocate_grids
 (ED_AUX_FUNX.f90:278-304). Susceptibilities and phonons are not ported
 (ROADMAP A6) and raise.
@@ -29,6 +31,7 @@ from .config import EDConfig
 from .diag import DiagState, diagonalize_impurity
 from .eigenspace import StateList
 from .gf import GFData, HCache, build_gf_normal, build_sigma
+from .ops.factory import resolve_device
 from .observables import (Observables, local_energy_impurity,
                           observables_impurity, zimp_simp)
 from .sectors import SectorTable
@@ -43,11 +46,6 @@ def matsubara_grid(cfg: EDConfig) -> np.ndarray:
 
 def real_grid(cfg: EDConfig) -> np.ndarray:
     return np.linspace(cfg.wini, cfg.wfin, cfg.lreal)
-
-
-def default_device() -> torch.device:
-    """CUDA when a card is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 @dataclass
@@ -69,13 +67,12 @@ class EDSolver:
     """One impurity solver instance (`ed_init_solver` + `ed_solve`)."""
 
     def __init__(self, cfg: EDConfig, hloc: Optional[np.ndarray] = None,
-                 device=None):
+                 device="cuda"):
         if cfg.chispin_flag or cfg.chidens_flag or cfg.dim_ph > 1:
             raise NotImplementedError("susceptibilities and phonons are not "
                                       "ported yet (ROADMAP A6)")
         self.cfg = cfg
-        self.device = torch.device(device) if device is not None \
-            else default_device()
+        self.device = resolve_device(device)
         self.table = SectorTable(cfg)
         nso = (cfg.nspin, cfg.nspin, cfg.norb, cfg.norb)
         self.hloc = np.zeros(nso) if hloc is None else np.asarray(

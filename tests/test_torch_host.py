@@ -142,7 +142,11 @@ def test_port_imports_no_jax():
     code = ("import sys; import dmft_lanc_ed_tpu_torch, "
             "dmft_lanc_ed_tpu_torch.models.hm_bethe, "
             "dmft_lanc_ed_tpu_torch.ops.bs_chain, "
-            "dmft_lanc_ed_tpu_torch.convert, dmft_lanc_ed_tpu_torch._kernels; "
+            "dmft_lanc_ed_tpu_torch.convert, dmft_lanc_ed_tpu_torch._kernels, "
+            "dmft_lanc_ed_tpu_torch.parallel.multihost, "
+            "dmft_lanc_ed_tpu_torch.parallel.mesh, "
+            "dmft_lanc_ed_tpu_torch.parallel.bs_sharded, "
+            "dmft_lanc_ed_tpu_torch.parallel.production; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dmft_lanc_ed_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -1,12 +1,13 @@
-"""The CUDA kernels (the chains B2, B3, B4 and the per-call matvec B1)
-against their plain PyTorch versions on the card. Marked ``gpu``: without
+"""The CUDA kernels (the chains B2, B3, B4, the per-call matvec B1 and its
+dw-sharded form B5) against their plain PyTorch versions on the card. Marked ``gpu``: without
 a CUDA device every test skips (the CPU tests hold the plain versions
 against the JAX package instead). On a machine with a card:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu -q
 
 (``--noconftest``: tests/conftest.py imports jax, which the port's
-machine need not have).
+machine need not have). The NCCL tests at the end need two cards (one
+rank per card; NCCL refuses two ranks on one) and skip with fewer.
 
 Tolerances: both sides are f32 recurrences over the same operator with
 f32 products summed in different orders, so the first chain coefficients
@@ -23,6 +24,11 @@ from dmft_lanc_ed_tpu_torch.ops import blocksparse as bs
 from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
 from dmft_lanc_ed_tpu_torch.ops.blocksparse import (build_blocksparse_op,
                                                     to_padded)
+from dmft_lanc_ed_tpu_torch.parallel import bs_sharded as bsh
+from dmft_lanc_ed_tpu_torch.parallel.mesh import make_mesh
+from dmft_lanc_ed_tpu_torch.parallel.multihost import (allreduce_sites,
+                                                       my_sites, rank_device,
+                                                       run_local_ranks)
 
 pytestmark = pytest.mark.gpu
 
@@ -149,3 +155,104 @@ def test_chain_step_normalizes_on_card(cuda, nbath, sqn):
     y2, _ = bs.chain_step(op, y, r)
     y_ref, _ = bs.matvec_bs_padded_plain(op.pop, y, r)
     assert float((y2 - y_ref).abs().max()) <= 1e-5 * float(y_ref.abs().max())
+
+
+B5_GEOMETRIES = [(10, (5, 5)), (11, (6, 6))]     # the sectors B5 takes at n=2
+
+
+@pytest.mark.parametrize("nbath,sqn", B5_GEOMETRIES)
+def test_sharded_matvec_matches_plain(cuda, nbath, sqn):
+    """B5 on each of 2 shards vs its plain version: y to 1e-5 x max|y|,
+    panel sums of squares 1e-5 relative (true f32 products summed in other
+    orders)."""
+    op = _op(cuda, nbath, sqn)
+    v = _starts(op, 1, 6)[0]
+    for d in range(2):
+        sh = bsh.shard_bs_op(op, 2, d, cuda)
+        v_loc, v_ext = bsh.shard_rows(v, sh)
+        before = bsh.launch_counts["sharded_matvec"]
+        y_k, ss_k = bsh._local_call(sh, v_loc, v_ext)
+        assert bsh.launch_counts["sharded_matvec"] == before + 1
+        y_p, ss_p = bsh._local_call_plain(sh, v_loc, v_ext)
+        assert float((y_k - y_p).abs().max()) <= \
+            1e-5 * float(y_p.abs().max())
+        assert float(((ss_k - ss_p).abs() / ss_p.abs().clamp(min=1e-30)
+                      ).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("nbath,sqn", B5_GEOMETRIES)
+def test_sharded_matvec_stitched_equals_whole_window(cuda, nbath, sqn):
+    """The shards of B5 multiply B1b's window tiles in B1b's order, and no
+    clamped window reaches an edge shard's zero halo: stitched, they equal
+    B1b bit for bit."""
+    op = _op(cuda, nbath, sqn)
+    v = _starts(op, 1, 7)[0]
+    y_b, ss_b = bs._matvec_padded(op, v, 1.0, trim=False)
+    parts = [bsh._local_call(sh, *bsh.shard_rows(v, sh))
+             for sh in (bsh.shard_bs_op(op, 2, d, cuda) for d in range(2))]
+    assert torch.equal(torch.cat([y for y, _ in parts]), y_b)
+    assert torch.equal(torch.cat([ss for _, ss in parts]), ss_b)
+
+
+def test_sharded_matvec_refuses_bad_inputs(cuda):
+    op = _op(cuda, 10, (5, 5))
+    sh = bsh.shard_bs_op(op, 2, 0, cuda)
+    v_loc, v_ext = bsh.shard_rows(_starts(op, 1, 8)[0], sh)
+    with pytest.raises(ValueError):
+        bsh._local_call(sh, v_loc.double(), v_ext.double())
+    with pytest.raises(ValueError):
+        bsh._local_call(sh, v_loc, v_ext[:-128].contiguous())
+
+
+@pytest.fixture
+def two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL takes one rank per card)")
+
+
+def _nccl_sites_rank(rank):
+    """Host arrays merged over NCCL: the mesh stages them through the
+    rank's card."""
+    local = {i: np.full((2, 3), 10.0 * i + 1.0) for i in my_sites(5)}
+    return allreduce_sites(local, 5, (2, 3))
+
+
+def _nccl_ground_state_rank(rank):
+    """The sharded band-sparse ground state at nbath = 10, (5,5), each rank
+    on its own card, the halo exchange and the sums over NCCL."""
+    dev = rank_device()
+    mesh = make_mesh(2, dev)
+    op = _op("cpu", 10, (5, 5))
+    cfg = pt.read_input(None, norb=1, nbath=10, uloc=(2.0,))
+    before = bsh.launch_counts["sharded_matvec"]
+    vals, vecs = bsh.bs_sharded_ground_state(cfg, op, mesh, 1, ncv=32)
+    return (mesh.transport, str(dev), vals, vecs,
+            bsh.launch_counts["sharded_matvec"] - before)
+
+
+def test_sites_merge_over_nccl(cuda, two_cards):
+    out = run_local_ranks(_nccl_sites_rank, 2, device="cuda", timeout=300)
+    expect = np.stack([np.full((2, 3), 10.0 * i + 1.0) for i in range(5)])
+    for merged in out:
+        np.testing.assert_array_equal(merged, expect)
+
+
+def test_sharded_ground_state_over_nccl(cuda, two_cards):
+    """Two ranks, one card each: NCCL carries the collectives, B5 launches
+    on both cards, and the ground state equals the one-card two-stage
+    solve's to 1e-9 (the JAX sharded test's gate), the same bits on both
+    ranks."""
+    from dmft_lanc_ed_tpu_torch import _kernels
+    from dmft_lanc_ed_tpu_torch.diag import _blocksparse_ground_state
+    _kernels.build()                # once, before the ranks load it
+    out = run_local_ranks(_nccl_ground_state_rank, 2, device="cuda",
+                          timeout=300)
+    op = _op(cuda, 10, (5, 5))
+    cfg = pt.read_input(None, norb=1, nbath=10, uloc=(2.0,))
+    e_ref, _ = _blocksparse_ground_state(cfg, op, op.dim, 1, ncv=32)
+    assert [o[1] for o in out] == ["cuda:0", "cuda:1"]
+    for transport, _, vals, vecs, launches in out:
+        assert transport == "nccl" and launches > 0
+        assert abs(vals[0] - e_ref[0]) <= 1e-9
+        assert vals.tobytes() == out[0][2].tobytes()
+        assert vecs.tobytes() == out[0][3].tobytes()
