@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--phases 0,1,2,3,3b,4,5,6,7]
+    python3 chip_smoke.py [--phases 0,1,2,3,3b,4,5,6,7,8]
 
 Phases (all by default; each raises on failure and the script then exits
 nonzero without a result line):
@@ -50,13 +50,29 @@ nonzero without a result line):
    route (the (7,6) and (5,6) targets) run on both ranks, both ranks'
    results identical. Times are two ranks time-sliced on one card, not a
    multi-card number.
+8. the experiment probes E1-E3 (``dmft_lanc_ed_tpu_torch/experiments``),
+   which run on no solver path: (a) E1, the power chain in one cooperative
+   launch, against its plain version within the probe's gates (norms
+   1e-5, vout 1e-4 relative); (b) E2's five forms (the tile lists in four
+   modes, the trim runs) at the 854k sector against the plain version (y
+   within 1e-5 x max|y|, panel sums of squares 1e-5 relative) and
+   bit-identical to each other; (c) E3's five product forms, m = 96,
+   each against its plain version with phase 2's B2 gate (first 16
+   alpha/beta within 1e-4 x max(1, |alpha|max)); the time per call or
+   step of every form beside B1's and B2's; then the main path of this
+   slice, the three probes' ``main()``, with their launch counts set to
+   0 just before and read just after. Times come from
+   ``experiments.timing.device_ms``, which holds the stream while the
+   host enqueues, so they are device time without the host's.
 
 The line before the last is the kernel table as JSON. Each kernel's bound
 is the larger of its FP32 operations over 67 TFLOP/s and its bytes, each
 input read once and each output written once, over 3.35 TB/s (the
 published H100 SXM peaks), both counted over the nonzero 128 x 128 window
-tiles of the op (its trim runs), the tiles the product needs. The last
-line is ``{"ok": true, "device": {...}}``.
+tiles of the op (its trim runs), the tiles the product needs; E2 and E3
+count their split-bf16 products at the 989 TFLOP/s dense bf16
+tensor-core peak (three passes; the rest FP32). The last line is
+``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
@@ -71,20 +87,29 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHAIN_SRC = "dmft_lanc_ed_tpu_torch/csrc/bs_chain.cu"
 MATVEC_SRC = "dmft_lanc_ed_tpu_torch/csrc/bs_matvec.cu"
+TRIM_SRC = "dmft_lanc_ed_tpu_torch/csrc/trim_ab.cu"
 SOURCE = {"tridiag": CHAIN_SRC, "cheb": CHAIN_SRC, "gf_tridiag": CHAIN_SRC,
           "matvec_runs": MATVEC_SRC, "matvec_full": MATVEC_SRC,
-          "sharded_matvec": MATVEC_SRC}
+          "sharded_matvec": MATVEC_SRC,
+          "chain_probe": "dmft_lanc_ed_tpu_torch/csrc/chain_probe.cu",
+          "trim_tiles": TRIM_SRC, "trim_static_runs": TRIM_SRC,
+          "chain_breakdown": "dmft_lanc_ed_tpu_torch/csrc/chain_breakdown.cu"}
 REPLACES = {"tridiag": "dmft_lanc_ed_tpu/ops/bs_chain.py:207",
             "cheb": "dmft_lanc_ed_tpu/ops/bs_chain.py:331",
             "gf_tridiag": "dmft_lanc_ed_tpu/ops/bs_chain.py:540",
             "matvec_runs": "dmft_lanc_ed_tpu/ops/blocksparse.py:572",
             "matvec_full": "dmft_lanc_ed_tpu/ops/blocksparse.py:469",
-            "sharded_matvec": "dmft_lanc_ed_tpu/parallel/bs_sharded.py:67"}
+            "sharded_matvec": "dmft_lanc_ed_tpu/parallel/bs_sharded.py:67",
+            "chain_probe": "experiments/chain_probe.py:33",
+            "trim_tiles": "experiments/trim_ab.py:79",
+            "trim_static_runs": "experiments/trim_ab.py:214",
+            "chain_breakdown": "experiments/chain_breakdown.py:79"}
 NBATH = 11
 HALF = (NBATH + 1) // 2   # the half-filled sector (6,6)
 DEVICE = "cuda"
 NSHARD = 2                # phases 6 and 7: ranks of the dw split
 PEAK_FP32 = 67e12         # FLOP/s, H100 SXM outside the tensor cores
+PEAK_BF16 = 989e12        # FLOP/s, H100 SXM tensor cores, dense bf16
 PEAK_BYTES = 3.35e12      # bytes/s, H100 SXM HBM3
 # phase 7(b) gates, sharded vs one-rank G(iw) and Sigma(iw). The JAX
 # test's 1e-9 and 1e-7 compare two f64 solves; here the one-rank solve runs
@@ -122,6 +147,23 @@ def bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def bound_tc(tc_flops, fp32_flops, nbytes):
+    """(least ms, "operations" or "bytes") of a split-bf16 kernel: the
+    larger of its tensor-core products over the bf16 peak, its FP32
+    operations over the FP32 peak, and its bytes over the memory rate."""
+    t_ops = max(tc_flops / PEAK_BF16, fp32_flops / PEAK_FP32)
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def hop_flops(pop, dw_tiles, up_tiles):
+    """Operations of one pass of the hop products of an H_p u over the
+    whole padded grid, dw_tiles / up_tiles 128 x 128 window tiles."""
+    ddp, dup = pop.padded_shape
+    return 2 * 128 * 128 * (dup * dw_tiles + ddp * up_tiles)
 
 
 def panel_flops(pop, rows, dw_tiles, up_tiles):
@@ -644,6 +686,140 @@ def phase6(op):
     return [("sharded_matvec", err, ms_k, ms_p, b_ms, b_by)]
 
 
+def phase8(op, earlier):
+    """The experiment probes E1-E3: each kernel against its plain version
+    (launches not counted), then the probes' entry points, the main path
+    of this slice, with their launch counts set to 0 just before and read
+    just after. `earlier`: the kernel rows of phases 2 and 6, whose times
+    are printed beside the probes'."""
+    import torch
+    from dmft_lanc_ed_tpu_torch.experiments import chain_breakdown as cb
+    from dmft_lanc_ed_tpu_torch.experiments import chain_probe as cp
+    from dmft_lanc_ed_tpu_torch.experiments import trim_ab as ta
+    from dmft_lanc_ed_tpu_torch.experiments.timing import device_ms
+    pop = op.pop
+    ddp, dup = pop.padded_shape
+    rank = pop.diag_a.shape[1]
+    tiles = kept_tiles(pop)
+    hop = hop_flops(pop, *tiles)
+    prior = {r[0]: r[2] for r in earlier}
+    rows = []
+
+    # (a) E1: the probe's gates, kernel against plain
+    v0, a = cp.probe_inputs(DEVICE)
+    n_k, v_k = cp.chain(v0, a)
+    n_p, v_p = cp.chain_plain(v0, a)
+    torch.cuda.synchronize()
+    err_n = float((n_k - n_p).abs().max() / n_p.abs().max())
+    err_v = float((v_k - v_p).abs().max() / v_p.abs().max())
+    say(f"E1 chain_probe N={cp.N} K={cp.K}: norms rel diff {err_n:.3e} (tol "
+        f"1e-5), vout rel diff {err_v:.3e} (tol 1e-4)")
+    if not (err_n <= 1e-5 and err_v <= 1e-4):
+        raise AssertionError("E1 kernel disagrees with its plain version")
+    n, kk = cp.N, cp.K
+    ms_k = device_ms(lambda: cp.chain(v0, a), 200, 3) / kk
+    ms_p = device_ms(lambda: cp.chain_plain(v0, a), 50, 3) / kk
+    # the marginal step, without the launch and the load of A: K = 7 vs 71
+    ms_71 = device_ms(lambda: cp.chain(v0, a, 71), 50, 3)
+    marginal = (ms_71 - kk * ms_k) / (71 - kk)
+    b_e1 = bound(2 * n * n * 128 + 4 * n * 128,
+                 (4 * n * n + 8 * n * 128 + 4 * kk) / kk)
+    rows.append(("chain_probe", float((v_k - v_p).abs().max()), ms_k, ms_p,
+                 *b_e1))
+    say(f"  E1 per step: kernel {1e3 * ms_k:.3f} us (one cooperative launch, "
+        f"a grid sync per step; marginal step {1e3 * marginal:.3f} us from "
+        f"K = {kk} vs 71), plain {1e3 * ms_p:.3f} us, bound "
+        f"{1e3 * b_e1[0]:.3f} us ({b_e1[1]}); B2's step (4 launches, 854k): "
+        f"{prior.get('tridiag', float('nan')):.4f} ms")
+
+    # (b) E2: the five forms against plain and against each other
+    v = ta.random_start(op, 13)
+    scale = 0.37
+    y_p, ss_p = ta.matvec_plain(op, v, scale)
+    ymax = float(y_p.abs().max())
+    forms = [(m, ta.make_variant(op, m)) for m in ta.MODES] \
+        + [("static_runs", ta.make_static_runs(op))]
+    outs = {}
+    for name, call in forms:
+        y_k, ss_k = call(v, scale)
+        torch.cuda.synchronize()
+        err = float((y_k - y_p).abs().max())
+        ss_rel = float(((ss_k.double() - ss_p.double()).abs()
+                        / ss_p.double().abs().clamp(min=1e-300)).max())
+        say(f"E2 {name}: max|dy| = {err:.3e} (tol {1e-5 * ymax:.3e}); max "
+            f"panel ss rel diff {ss_rel:.3e} (tol 1e-5)")
+        if not (err <= 1e-5 * ymax and ss_rel <= 1e-5):
+            raise AssertionError(f"E2 {name} disagrees with its plain version")
+        outs[name] = (y_k, ss_k, err)
+    y0, ss0, _ = outs["untrimmed"]
+    same = all(torch.equal(y, y0) and torch.equal(ss, ss0)
+               for y, ss, _ in outs.values())
+    say(f"E2 five forms bit-identical: {same}")
+    if not same:
+        raise AssertionError("E2's forms differ")
+    ms_p = device_ms(lambda: ta.matvec_plain(op, v, scale), 20, 3)
+    # the split v and the epilogue in FP32; v in, y and ss out, the op once
+    b_e2 = bound_tc(3 * hop, (2 * rank + 7) * ddp * dup,
+                    op_bytes(pop, ddp, *tiles) + 8 * ddp * dup
+                    + 4 * (ddp // 128))
+    times = {name: device_ms(lambda: call(v, scale), 50, 3)
+             for name, call in forms}
+    say("  E2 per call: " + ", ".join(f"{k} {t:.4f} ms"
+                                      for k, t in times.items())
+        + f"; plain {ms_p:.4f} ms; bound {b_e2[0]:.4f} ms ({b_e2[1]}); B1a "
+        f"{prior.get('matvec_runs', float('nan')):.4f} ms, B1b "
+        f"{prior.get('matvec_full', float('nan')):.4f} ms (FP32 FMA)")
+    rows.append(("trim_tiles", outs["untrimmed"][2], times["untrimmed"], ms_p,
+                 *b_e2))
+    rows.append(("trim_static_runs", outs["static_runs"][2],
+                 times["static_runs"], ms_p, *b_e2))
+
+    # (c) E3: the five product forms against their plain versions
+    m = 96
+    v0 = ta.random_start(op, 17)
+    vec = 4 * ddp * dup
+    e3 = {}
+    for mode in cb.MODES:
+        call = cb.make_variant(op, mode)
+        al_k, be_k = call(v0, m)
+        al_p, be_p = cb.chain_plain(op, v0, m, mode)
+        al_k, be_k = al_k.cpu().numpy(), be_k.cpu().numpy()
+        al_p, be_p = al_p.cpu().numpy(), be_p.cpu().numpy()
+        sc = max(1.0, np.abs(al_p).max())
+        err = max(np.abs(al_k[:16] - al_p[:16]).max(),
+                  np.abs(be_k[:16] - be_p[:16]).max())
+        passes = 1 if mode == "1pass" else 3
+        slabs = op_bytes(pop, ddp, *tiles) // (2 if passes == 1 else 1)
+        b = bound_tc(passes * hop, (2 * rank + 12) * ddp * dup,
+                     (slabs + vec) / m + 8)
+        ms = device_ms(lambda: call(v0, m), 1, 3) / m
+        e3[mode] = (float(err), ms, b)
+        say(f"E3 {mode} m={m}: max|d alpha,beta|[:16] = {err:.3e} (tol "
+            f"{1e-4 * sc:.3e}); per step {1e3 * ms:.2f} us, bound "
+            f"{1e3 * b[0]:.2f} us ({b[1]})")
+        if not err <= 1e-4 * sc:
+            raise AssertionError(f"E3 {mode} disagrees with its plain version")
+    ms_p = device_ms(lambda: cb.chain_plain(op, v0, m, "3pass"), 1, 2) / m
+    say(f"  E3 per step: plain 3pass {ms_p:.4f} ms; B2 (FP32 FMA) "
+        f"{prior.get('tridiag', float('nan')):.4f} ms")
+    err3, ms3, b3 = e3["3pass"]
+    rows.append(("chain_breakdown", err3, ms3, ms_p, *b3))
+
+    # the main path of this slice: the probes' entry points
+    for mod in (cp, ta, cb):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    cp.main(DEVICE)
+    ta.main(DEVICE, op=op)
+    cb.main(DEVICE, op=op)
+    counts = {**cp.launch_counts, **ta.launch_counts, **cb.launch_counts}
+    say(f"phase 8: the probes' main() in {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts}")
+    if any(c <= 0 for c in counts.values()):
+        raise AssertionError(f"a probe kernel never launched: {counts}")
+    return rows, counts
+
+
 def _p7_cfg(**kw):
     """Phase 7(b): nbath = 11, T = 0, the sector (6,6) alone, one state,
     cut from the 9 sectors within 1 of (6,6) to keep the script's time."""
@@ -763,7 +939,7 @@ def phase7(e0, e_gs):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,3b,4,5,6,7")
+    ap.add_argument("--phases", default="0,1,2,3,3b,4,5,6,7,8")
     phases = set(ap.parse_args().phases.split(","))
     try:
         import torch
@@ -787,9 +963,10 @@ def main():
         rows, counts = [], {}
         e_gs = serial = None
         e0 = None
-        if phases & {"2", "3", "3b", "6", "7"}:
+        if phases & {"2", "3", "3b", "6", "7", "8"}:
             cfg, sec, h, op = sector_854k()
-            e0, v_gs = host_ground_state(h, sec)
+            if phases & {"2", "3", "3b", "7"}:
+                e0, v_gs = host_ground_state(h, sec)
             if "2" in phases:
                 rows = phase2(op, e0, v_gs)
             if "3" in phases:
@@ -798,6 +975,10 @@ def main():
                 counts.update(phase3b(cfg, sec, op, e0)[0])
             if "6" in phases:
                 rows += phase6(op)
+            if "8" in phases:
+                r8, c8 = phase8(op, rows)
+                rows += r8
+                counts.update(c8)
             del op
         if "4" in phases:
             serial, c4, _ = phase4(e_gs)

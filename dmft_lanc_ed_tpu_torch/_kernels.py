@@ -100,6 +100,18 @@ def lib() -> ctypes.CDLL:
         cdll.bs_matvec.argtypes = [vp] * 13 + [i32] * 7 + [vp]
         cdll.bs_sharded_matvec.restype = i32
         cdll.bs_sharded_matvec.argtypes = [vp] * 15 + [i32] * 8 + [vp]
+        # the experiment probes' kernels (experiments/)
+        cdll.chain_probe.restype = i32
+        cdll.chain_probe.argtypes = [vp] * 6 + [i32] * 2 + [vp]
+        cdll.trim_matvec_nblk.restype = i32
+        cdll.trim_matvec_nblk.argtypes = [i32, i32]
+        cdll.trim_matvec.restype = i32
+        cdll.trim_matvec.argtypes = [vp] * 11 + [i32] + [vp] * 4 + [i32] * 7 \
+            + [vp]
+        cdll.bd_chain_nblk.restype = i32
+        cdll.bd_chain_nblk.argtypes = [i32, i32]
+        cdll.bd_chain.restype = i32
+        cdll.bd_chain.argtypes = [vp] * 15 + [i32] * 9 + [vp]
         _LIB = cdll
     return _LIB
 

@@ -1,5 +1,7 @@
 // The band-sparse panel apply shared by the chain kernels (bs_chain.cu) and
-// the per-call matvec kernel (bs_matvec.cu), FP32 FMA for sm_90a.
+// the per-call matvec kernel (bs_matvec.cu), FP32 FMA for sm_90a. The
+// probes' tensor-core tile product (bf16x3.cuh) takes its geometry, window
+// clamp, diagonal and fixed-order sum from here.
 //
 // On the RCM-permuted sector vector padded to multiples of 128, u[ddp, dup]
 // (f32), a block computes one 64 x 64 output tile of

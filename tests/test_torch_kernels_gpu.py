@@ -1,5 +1,6 @@
 """The CUDA kernels (the chains B2, B3, B4, the per-call matvec B1 and its
-dw-sharded form B5) against their plain PyTorch versions on the card. Marked ``gpu``: without
+dw-sharded form B5, and the experiment probes' kernels E1-E3) against their
+plain PyTorch versions on the card. Marked ``gpu``: without
 a CUDA device every test skips (the CPU tests hold the plain versions
 against the JAX package instead). On a machine with a card:
 
@@ -20,6 +21,9 @@ import pytest
 import torch
 
 import dmft_lanc_ed_tpu_torch as pt
+from dmft_lanc_ed_tpu_torch.experiments import chain_breakdown as cbd
+from dmft_lanc_ed_tpu_torch.experiments import chain_probe as cpr
+from dmft_lanc_ed_tpu_torch.experiments import trim_ab as tab
 from dmft_lanc_ed_tpu_torch.ops import blocksparse as bs
 from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
 from dmft_lanc_ed_tpu_torch.ops.blocksparse import (build_blocksparse_op,
@@ -202,6 +206,74 @@ def test_sharded_matvec_refuses_bad_inputs(cuda):
         bsh._local_call(sh, v_loc.double(), v_ext.double())
     with pytest.raises(ValueError):
         bsh._local_call(sh, v_loc, v_ext[:-128].contiguous())
+
+
+def test_chain_probe_kernel_matches_plain(cuda):
+    """E1, one cooperative launch of K steps, against its plain version
+    within the probe's gates (norms 1e-5, vout 1e-4 relative)."""
+    v0, a = cpr.probe_inputs(cuda)
+    before = cpr.launch_counts["chain_probe"]
+    n_k, v_k = cpr.chain(v0, a)
+    assert cpr.launch_counts["chain_probe"] == before + 1
+    n_p, v_p = cpr.chain_plain(v0, a)
+    assert float((n_k - n_p).abs().max()) <= 1e-5 * float(n_p.abs().max())
+    assert float((v_k - v_p).abs().max()) <= 1e-4 * float(v_p.abs().max())
+
+
+E_GEOMETRIES = [(10, (5, 5)), (11, (5, 5))]
+
+
+@pytest.mark.parametrize("nbath,sqn", E_GEOMETRIES)
+def test_trim_forms_match_plain_bit_identical(cuda, nbath, sqn):
+    """E2's five forms (tile lists in four modes, the trim runs) against
+    the plain version (y 1e-5 x max|y|, panel sums 1e-5 relative; split-
+    bf16 products summed in other orders), and bit-identical to each other:
+    every form walks the same nonzero tiles in ascending order."""
+    op = _op(cuda, nbath, sqn)
+    v = _starts(op, 1, 9)[0]
+    y_p, ss_p = tab.matvec_plain(op, v, 0.5)
+    before = dict(tab.launch_counts)
+    calls = [tab.make_variant(op, m) for m in tab.MODES] \
+        + [tab.make_static_runs(op)]
+    outs = [c(v, 0.5) for c in calls]
+    assert tab.launch_counts["trim_tiles"] == before["trim_tiles"] + 4
+    assert tab.launch_counts["trim_static_runs"] == \
+        before["trim_static_runs"] + 1
+    y0, ss0 = outs[0]
+    assert float((y0 - y_p).abs().max()) <= 1e-5 * float(y_p.abs().max())
+    assert float(((ss0 - ss_p).abs() / ss_p.abs().clamp(min=1e-30)).max()
+                 ) <= 1e-5
+    for y, ss in outs[1:]:
+        assert torch.equal(y, y0) and torch.equal(ss, ss0)
+
+
+@pytest.mark.parametrize("mode", cbd.MODES)
+def test_chain_breakdown_kernel_matches_plain(cuda, mode):
+    """E3, each product form, against its plain version: the first 16
+    alpha, beta within 1e-4 x max(1, |alpha|max) (phase 2's B2 gate)."""
+    op = _op(cuda, 10, (5, 5))
+    v = _starts(op, 1, 10)[0]
+    before = cbd.launch_counts["chain_breakdown"]
+    al_k, be_k = cbd.make_variant(op, mode)(v, 32)
+    assert cbd.launch_counts["chain_breakdown"] == before + 1
+    al_p, be_p = cbd.chain_plain(op, v, 32, mode)
+    scale = max(1.0, float(al_p.abs().max()))
+    assert float((al_k[:16] - al_p[:16]).abs().max()) <= 1e-4 * scale
+    assert float((be_k[:16] - be_p[:16]).abs().max()) <= 1e-4 * scale
+
+
+def test_chain_breakdown_forms_on_card(cuda):
+    """tileskip skips only zero tiles: the same bits as 3pass; bf16pair is
+    3pass with its vectors rounded to hi + lo: within 1e-4 x scale."""
+    op = _op(cuda, 10, (5, 5))
+    v = _starts(op, 1, 11)[0]
+    a3, b3 = cbd.make_variant(op, "3pass")(v, 16)
+    a_s, b_s = cbd.make_variant(op, "tileskip")(v, 16)
+    assert torch.equal(a_s, a3) and torch.equal(b_s, b3)
+    a_p, b_p = cbd.make_variant(op, "bf16pair")(v, 16)
+    scale = max(1.0, float(a3.abs().max()))
+    assert float((a_p - a3).abs().max()) <= 1e-4 * scale
+    assert float((b_p - b3).abs().max()) <= 1e-4 * scale
 
 
 @pytest.fixture
