@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--phases 0,1,2,3,3b,4,5,6,7,8]
+    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8]
+                          [--ghost-tol X]
+
+``--ghost-tol`` replaces ``ops.bs_chain._GHOST_TOL`` for the run: phase 4
+then measures, over all 109 band-sparse sectors, whether every chain seed
+still reaches its eta_target with that Ritz ghost-cluster tolerance.
 
 Phases (all by default; each raises on failure and the script then exits
 nonzero without a result line):
@@ -13,7 +18,18 @@ nonzero without a result line):
 2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag, B1 the
    per-call matvec, trimmed and whole-window) against its plain PyTorch
    version at the 854k-state (6,6) sector of nbath = 11, with the
-   tolerances stated below, and the time per step or call of both.
+   tolerances stated below, and the time per step or call of both. B2 and
+   B3 (tensor cores, three-pass split-bf16 products) are held against
+   their split plain versions, their distance to the true-f32 plain
+   version is printed, and two reruns of each must be bit-identical. The
+   new tridiag kernel on one of B4's chains is printed beside B4's gates
+   (not gated, on no solver path).
+2s. the chain kernels' time per step at three shapes of the main path:
+   the sectors (6,6), (5,4) and (3,4) of nbath = 11 (924 x 924, 792 x 495
+   and 220 x 495 states, padded to 1024 x 1024, 896 x 512 and 256 x 512),
+   B2 and B3 through their wrappers beside the FP32 FMA tridiag kernel on
+   one chain (B4's kernel, B2's form before the tensor-core one), each
+   with its bound, by CUDA events around back-to-back chains.
 3. the two-stage ground state of that sector on the card (chain stage 1)
    against host ARPACK (scipy eigsh, tol 1e-13): |dE| <= 1e-10.
 3b. the per-call path of that sector, as the JAX package's headline bench
@@ -24,8 +40,9 @@ nonzero without a result line):
 4. ``run_dmft`` of the one-orbital Bethe-lattice Hubbard model at
    nbath = 11, T = 0, 2 loops, on the card, sectors one by one
    (``ed_batch_sectors=False``); every chain kernel must launch in it,
-   outputs must be finite, 0 <= dens <= 2, and loop 1's Egs must equal
-   phase 3's energy to 1e-9.
+   every chain seed must reach its eta_target (``seed_counts``), outputs
+   must be finite, 0 <= dens <= 2, and loop 1's Egs must equal phase 3's
+   energy to 1e-9.
 5. the default configuration: phase 4 with ``ed_backend="auto"`` and
    ``ed_batch_sectors`` left at True (small sectors solved in batched
    buckets); at least one bucket solved, every chain kernel launched,
@@ -69,10 +86,11 @@ The line before the last is the kernel table as JSON. Each kernel's bound
 is the larger of its FP32 operations over 67 TFLOP/s and its bytes, each
 input read once and each output written once, over 3.35 TB/s (the
 published H100 SXM peaks), both counted over the nonzero 128 x 128 window
-tiles of the op (its trim runs), the tiles the product needs; E2 and E3
-count their split-bf16 products at the 989 TFLOP/s dense bf16
-tensor-core peak (three passes; the rest FP32). The last line is
-``{"ok": true, "device": {...}}``.
+tiles of the op (its trim runs), the tiles the product needs; B2, B3, E2
+and E3 count their split-bf16 products at the 989 TFLOP/s dense bf16
+tensor-core peak (three passes; the rest FP32). A chain kernel's
+``launches`` are chain launches and its ``steps`` the steps they ran; its
+``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
@@ -86,9 +104,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHAIN_SRC = "dmft_lanc_ed_tpu_torch/csrc/bs_chain.cu"
+CHAIN_TC_SRC = "dmft_lanc_ed_tpu_torch/csrc/bs_chain_tc.cu"
 MATVEC_SRC = "dmft_lanc_ed_tpu_torch/csrc/bs_matvec.cu"
 TRIM_SRC = "dmft_lanc_ed_tpu_torch/csrc/trim_ab.cu"
-SOURCE = {"tridiag": CHAIN_SRC, "cheb": CHAIN_SRC, "gf_tridiag": CHAIN_SRC,
+SOURCE = {"tridiag": CHAIN_TC_SRC, "cheb": CHAIN_TC_SRC,
+          "gf_tridiag": CHAIN_SRC,
           "matvec_runs": MATVEC_SRC, "matvec_full": MATVEC_SRC,
           "sharded_matvec": MATVEC_SRC,
           "chain_probe": "dmft_lanc_ed_tpu_torch/csrc/chain_probe.cu",
@@ -107,6 +127,8 @@ REPLACES = {"tridiag": "dmft_lanc_ed_tpu/ops/bs_chain.py:207",
 NBATH = 11
 HALF = (NBATH + 1) // 2   # the half-filled sector (6,6)
 DEVICE = "cuda"
+# phase 2s: sectors of nbath = 11 whose shapes the main path runs most
+SHAPES = ((HALF, HALF), (5, 4), (3, 4))
 NSHARD = 2                # phases 6 and 7: ranks of the dw split
 PEAK_FP32 = 67e12         # FLOP/s, H100 SXM outside the tensor cores
 PEAK_BF16 = 989e12        # FLOP/s, H100 SXM tensor cores, dense bf16
@@ -193,6 +215,28 @@ def op_bytes(pop, rows, dw_tiles, up_tiles):
     return 4 * (128 * 128 * (dw_tiles + up_tiles) + rows * rank + rank * dup)
 
 
+def chain_bounds(pop, m, kk):
+    """(B2's bound per step of an m-step chain, B3's of a kk-step chain,
+    the FP32 FMA tridiag kernel's), each (least ms, bound by). B2 and B3:
+    three bf16 tensor-core passes over the nonzero window tiles, the
+    diagonal and the recurrence in FP32 (B2 ~12, B3 ~8 operations an
+    element), the split slabs (as many bytes as the f32 slabs) and the
+    start vector once a call."""
+    ddp, dup = pop.padded_shape
+    rank = pop.diag_a.shape[1]
+    tiles = kept_tiles(pop)
+    hop = hop_flops(pop, *tiles)
+    vec = 4 * ddp * dup
+    slabs = op_bytes(pop, ddp, *tiles)
+    b2 = bound_tc(3 * hop, (2 * rank + 12) * ddp * dup,
+                  (slabs + vec) / m + 8)
+    b3 = bound_tc(3 * hop, (2 * rank + 8) * ddp * dup,
+                  (slabs + 2 * vec) / kk)
+    fma = bound(panel_flops(pop, ddp, *tiles) + 8 * ddp * dup,
+                (slabs + vec) / m + 8)
+    return b2, b3, fma
+
+
 def phase0():
     import torch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -218,17 +262,18 @@ def phase1():
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def sector_854k():
-    """cfg, sector, host Hamiltonian and the band-sparse op on the card."""
+def sector_854k(sqn=(HALF, HALF)):
+    """cfg, sector, host Hamiltonian and the band-sparse op on the card
+    (the 854k-state sector (6,6) by default)."""
     import dmft_lanc_ed_tpu_torch as pt
     from dmft_lanc_ed_tpu_torch.ops.blocksparse import build_blocksparse_op
     cfg = pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,))
-    sec = pt.SectorTable(cfg).sector(pt.qn(HALF, HALF))
+    sec = pt.SectorTable(cfg).sector(pt.qn(*sqn))
     h = pt.build_sector_hamiltonian(cfg, sec, np.zeros((1, 1, 1, 1)),
                                     pt.init_bath(cfg))
     t0 = time.perf_counter()
     op = build_blocksparse_op(h, DEVICE)
-    say(f"sector ({HALF},{HALF}): dim {sec.dim}, padded {op.padded_shape}, "
+    say(f"sector {tuple(sqn)}: dim {sec.dim}, padded {op.padded_shape}, "
         f"W_dw {op.pop.w_dw}, W_up {op.pop.w_up}, rank "
         f"{op.pop.diag_a.shape[1]}, op built in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -290,8 +335,11 @@ def _physical_gf_chain(v_gs, e0, m, g_cf):
 def phase2(op, e0, v_gs):
     """Each chain kernel against its plain version on the same inputs."""
     import torch
+    from dmft_lanc_ed_tpu_torch.experiments.timing import device_ms
     from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
-    from dmft_lanc_ed_tpu_torch.ops.blocksparse import from_padded, to_padded
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import (_hv_plain,
+                                                        from_padded,
+                                                        to_padded)
     pop = op.pop
     rng = np.random.default_rng(2024)
 
@@ -302,37 +350,43 @@ def phase2(op, e0, v_gs):
         return to_padded(op, v)
     rows = []
 
-    # B2: m = 96, first 16 alpha/beta within 1e-4 * max(1, |alpha|max);
-    # extreme Ritz values within 1e-4 * span
+    # B2 (tensor cores, split-bf16 products) against its split plain
+    # version: m = 96, first 16 alpha/beta within 1e-4 * max(1, |alpha|max);
+    # extreme Ritz values within 1e-4 * span. Both sides run the same
+    # product form, so they differ by summation order only; the distance to
+    # the true-f32 plain version is what the product form costs (printed).
     m = 96
     v0 = start(1)[0]
     al_k, be_k = bc.tridiag_call(op, v0, m)
+    al_r, be_r = bc.tridiag_call(op, v0, m)
+    if not (torch.equal(al_k, al_r) and torch.equal(be_k, be_r)):
+        raise AssertionError("two runs of B2 on one input differ")
     al_p, be_p = bc.tridiag_chain_plain(pop, v0[None], m)
+    al_f, be_f = bc.tridiag_chain_plain(pop, v0[None], m, hv=_hv_plain)
     al_k, be_k = al_k.cpu().numpy(), be_k.cpu().numpy()
     al_p, be_p = al_p[0].cpu().numpy(), be_p[0].cpu().numpy()
+    al_f, be_f = al_f[0].cpu().numpy(), be_f[0].cpu().numpy()
     scale = max(1.0, np.abs(al_p).max())
     err = max(np.abs(al_k[:16] - al_p[:16]).max(),
               np.abs(be_k[:16] - be_p[:16]).max())
+    err_f = max(np.abs(al_k[:16] - al_f[:16]).max(),
+                np.abs(be_k[:16] - be_f[:16]).max())
     th_k, _ = _tridiag_eigs(al_k, be_k)
     th_p, s_p = _tridiag_eigs(al_p, be_p)
+    th_f, _ = _tridiag_eigs(al_f, be_f)
     span = th_p[-1] - th_p[0]
     ritz_err = max(abs(th_k[0] - th_p[0]), abs(th_k[-1] - th_p[-1]))
+    ritz_f = max(abs(th_k[0] - th_f[0]), abs(th_k[-1] - th_f[-1]))
     say(f"B2 tridiag m={m}: max|d alpha,beta|[:16] = {err:.3e} "
         f"(tol {1e-4 * scale:.3e}); extreme Ritz diff {ritz_err:.3e} "
-        f"(tol {1e-4 * span:.3e})")
+        f"(tol {1e-4 * span:.3e}); reruns bit-identical; vs the f32 plain "
+        f"version: alpha,beta[:16] {err_f:.3e}, extreme Ritz {ritz_f:.3e}")
     if not (err <= 1e-4 * scale and ritz_err <= 1e-4 * span):
         raise AssertionError("B2 kernel disagrees with its plain version")
-    ms_k = cuda_ms(lambda: bc.tridiag_call(op, v0, m)) / m
+    b2, b3, _ = chain_bounds(pop, m, bc._bucket_k(128))
+    ms_k = device_ms(lambda: bc.tridiag_call(op, v0, m), 1, 3) / m
     ms_p = cuda_ms(lambda: bc.tridiag_chain_plain(pop, v0[None], m)) / m
-    ddp, dup = pop.padded_shape
-    tiles = kept_tiles(pop)
-    hu = panel_flops(pop, ddp, *tiles)
-    vec = 4 * ddp * dup
-    # per step: one H u and the recurrence's dots and updates (~8 per
-    # element); the call reads the op and v0 once and writes alpha, beta
-    rows.append(("tridiag", err, ms_k, ms_p,
-                 *bound(hu + 8 * ddp * dup,
-                        (op_bytes(pop, ddp, *tiles) + vec) / m + 8)))
+    rows.append(("tridiag", err, ms_k, ms_p, *b2))
 
     # B3: m = 128 with a filter window from the B2 Ritz bounds; filtered
     # vectors' relative difference <= 1e-3, ground-state overlaps to 1e-4
@@ -344,14 +398,20 @@ def phase2(op, e0, v_gs):
     cut = th_p[0] + 0.35 * gap
     c, e = 0.5 * (b + cut), 0.5 * (b - cut)
     kk = bc._bucket_k(128)
-    vk, nk = bc.cheb_call(op, v0, kk, float(np.float32(c)),
-                          float(np.float32(1.0 / e)))
-    vp, npn = bc.cheb_chain_plain(pop, v0, kk, float(np.float32(c)),
-                                  float(np.float32(1.0 / e)))
+    c32, ie32 = float(np.float32(c)), float(np.float32(1.0 / e))
+    vk, nk = bc.cheb_call(op, v0, kk, c32, ie32)
+    vr, nr = bc.cheb_call(op, v0, kk, c32, ie32)
+    if not (torch.equal(vk, vr) and torch.equal(nk, nr)):
+        raise AssertionError("two runs of B3 on one input differ")
+    vp, npn = bc.cheb_chain_plain(pop, v0, kk, c32, ie32)
+    vf, nf = bc.cheb_chain_plain(pop, v0, kk, c32, ie32, hv=_hv_plain)
     vk = vk / nk.float()
     vp = vp / npn.float()
+    vf = vf / nf.float()
     rel = float(torch.linalg.vector_norm(vk - vp)
                 / torch.linalg.vector_norm(vp))
+    rel_f = float(torch.linalg.vector_norm(vk - vf)
+                  / torch.linalg.vector_norm(vf))
     gs = torch.as_tensor(v_gs, device=DEVICE)
 
     def overlap(vpad):
@@ -360,18 +420,14 @@ def phase2(op, e0, v_gs):
     ov_k, ov_p = overlap(vk), overlap(vp)
     say(f"B3 cheb m={kk}: rel diff {rel:.3e} (tol 1e-3); GS overlap "
         f"kernel {ov_k:.8f} plain {ov_p:.8f} (start "
-        f"{overlap(v0):.3e}, tol 1e-4)")
+        f"{overlap(v0):.3e}, tol 1e-4); reruns bit-identical; vs the f32 "
+        f"plain version: rel diff {rel_f:.3e}, GS overlap {overlap(vf):.8f}")
     if not (rel <= 1e-3 and abs(ov_k - ov_p) <= 1e-4):
         raise AssertionError("B3 kernel disagrees with its plain version")
     vdiff = float((vk - vp).abs().max())
-    ms_k = cuda_ms(lambda: bc.cheb_call(op, v0, kk, c, 1.0 / e)) / kk
+    ms_k = device_ms(lambda: bc.cheb_call(op, v0, kk, c, 1.0 / e), 1, 3) / kk
     ms_p = cuda_ms(lambda: bc.cheb_chain_plain(pop, v0, kk, c, 1.0 / e)) / kk
-    ddp, dup = pop.padded_shape
-    tiles = kept_tiles(pop)
-    hu = panel_flops(pop, ddp, *tiles)
-    rows.append(("cheb", vdiff, ms_k, ms_p,
-                 *bound(hu + 4 * ddp * dup,
-                        (op_bytes(pop, ddp, *tiles) + 8 * ddp * dup) / kk)))
+    rows.append(("cheb", vdiff, ms_k, ms_p, *b3))
 
     # B4: 4 chains, m = 200 (the main path's lanc_ngfiter). The first 8
     # alpha/beta within 5e-5 * scale, and the continued-fraction G(iw) on
@@ -408,6 +464,18 @@ def phase2(op, e0, v_gs):
         f"(random starts, not gated)")
     if not (err_ab <= 5e-5 and err_g <= 2e-5):
         raise AssertionError("B4 kernel disagrees with its plain version")
+    # would three bf16 passes meet B4's gates? B2's tensor-core kernel on
+    # B4's first chain against the f32 plain version (printed, not gated:
+    # B4 stays on the FP32 FMA kernel)
+    al_t, be_t = (t.cpu().numpy() for t in bc.tridiag_call(op, vb[0], m_g))
+    sc0 = max(1.0, np.abs(al_p[0]).max())
+    tc_ab = max(np.abs(al_t[:8] - al_p[0, :8]).max(),
+                np.abs(be_t[:8] - be_p[0, :8]).max()) / sc0
+    tc_g = np.abs(g_cf(al_t, be_t) - g_cf(al_p[0, :m_g], be_p[0, :m_g])).max()
+    say(f"B2's tensor-core kernel on B4's chain 0 vs the f32 plain version: "
+        f"max|d alpha,beta|[:8]/scale = {tc_ab:.3e} (B4's gate 5e-5); "
+        f"max|dG(iw)| from {m_g} steps = {tc_g:.3e} (B4's gate 2e-5) "
+        f"[not gated]")
     # the main path's own chain: c^+_up |GS> into the (7,6) sector, its
     # G(iw) with poles shifted by E0 as the solver forms them (printed)
     g_k, g_p = _physical_gf_chain(v_gs, e0, m, g_cf)
@@ -484,6 +552,33 @@ def phase2_b1(op, v):
     return rows
 
 
+def phase2s():
+    """The chain kernels' time per step at SHAPES (module docstring), by
+    CUDA events around three back-to-back chains: the FP32 FMA wrapper
+    fills its state from the host, which a CUDA graph cannot capture, and
+    every step here takes the card longer than the host takes to enqueue
+    it (one to four launches)."""
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import to_padded
+    m, kk = 96, bc._bucket_k(128)
+    for sqn in SHAPES:
+        _, _, _, op = sector_854k(sqn)
+        pop = op.pop
+        v = np.random.default_rng(5).standard_normal((op.dim_dw, op.dim_up))
+        v0 = to_padded(op, v / np.linalg.norm(v))
+        # any window inside the spectrum times the filter
+        ms2 = cuda_ms(lambda: bc.tridiag_call(op, v0, m), 3) / m
+        ms3 = cuda_ms(lambda: bc.cheb_call(op, v0, kk, 0.3, 0.2), 3) / kk
+        ms_f = cuda_ms(lambda: bc._run_tridiag(pop, v0[None].contiguous(), m),
+                       3) / m
+        b2, b3, fma = chain_bounds(pop, m, kk)
+        say(f"  shape {tuple(sqn)} padded {op.padded_shape}: B2 {ms2:.4f} ms "
+            f"a step (bound {b2[0]:.4f} ms, {b2[1]}), B3 {ms3:.4f} ms a step "
+            f"(bound {b3[0]:.4f} ms, {b3[1]}), FP32 FMA tridiag kernel on one "
+            f"chain {ms_f:.4f} ms a step (bound {fma[0]:.4f} ms, {fma[1]})")
+        del op
+
+
 def phase3(cfg, sec, op, e0):
     import torch
     from dmft_lanc_ed_tpu_torch.diag import _blocksparse_ground_state
@@ -551,16 +646,18 @@ def _dmft_cfg(**kw):
 def _run_loop(name, cfg, e_gs):
     """run_dmft on the card with the chain launch counts reset just
     before; checks launches, finite outputs, dens range and loop 1's Egs
-    against phase 3. Returns (result, chain launch counts, seconds)."""
+    against phase 3. Returns (result, (chain launch counts, chain step
+    counts), seconds)."""
     from dmft_lanc_ed_tpu_torch.models.hm_bethe import run_dmft
     from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
     bc.reset_launch_counts()
     t0 = time.perf_counter()
     res = run_dmft(cfg, device=DEVICE, verbose=False)
     dt = time.perf_counter() - t0
-    counts = dict(bc.launch_counts)
+    counts, steps = dict(bc.launch_counts), dict(bc.step_counts)
+    seeds = dict(bc.seed_counts)
     say(f"{name}: run_dmft nbath={NBATH}, {res.iterations} loops in "
-        f"{dt:.1f} s; launches {counts}")
+        f"{dt:.1f} s; launches {counts}, steps {steps}, chain seeds {seeds}")
     for ent in res.history:
         say(f"  loop {ent['iloop']}: diag {ent['diag']:.2f} s, gf "
             f"{ent['gf']:.2f} s, fit {ent['fit']:.2f} s, Egs "
@@ -569,6 +666,9 @@ def _run_loop(name, cfg, e_gs):
             f"{ent['routing'][1]} via scan")
     if any(v <= 0 for v in counts.values()):
         raise AssertionError(f"a chain kernel never launched: {counts}")
+    if seeds["missed"] > 0 or seeds["reached"] <= 0:
+        raise AssertionError(f"a chain seed missed its eta_target (its sector "
+                             f"took the full top-off): {seeds}")
     outs = [res.sigma_mats, res.sigma_real, res.g_mats, res.weiss, res.bath,
             res.dens, res.docc]
     if not all(np.all(np.isfinite(x)) for x in outs):
@@ -583,7 +683,7 @@ def _run_loop(name, cfg, e_gs):
             f"|d| = {abs(egs1 - e_gs):.3e} (tol 1e-9)")
         if not abs(egs1 - e_gs) <= 1e-9:
             raise AssertionError("loop 1 ground state differs from phase 3")
-    return res, counts, dt
+    return res, (counts, steps), dt
 
 
 def phase4(e_gs):
@@ -729,7 +829,7 @@ def phase8(op, earlier):
     say(f"  E1 per step: kernel {1e3 * ms_k:.3f} us (one cooperative launch, "
         f"a grid sync per step; marginal step {1e3 * marginal:.3f} us from "
         f"K = {kk} vs 71), plain {1e3 * ms_p:.3f} us, bound "
-        f"{1e3 * b_e1[0]:.3f} us ({b_e1[1]}); B2's step (4 launches, 854k): "
+        f"{1e3 * b_e1[0]:.3f} us ({b_e1[1]}); B2's step (2 launches, 854k): "
         f"{prior.get('tridiag', float('nan')):.4f} ms")
 
     # (b) E2: the five forms against plain and against each other
@@ -800,7 +900,7 @@ def phase8(op, earlier):
         if not err <= 1e-4 * sc:
             raise AssertionError(f"E3 {mode} disagrees with its plain version")
     ms_p = device_ms(lambda: cb.chain_plain(op, v0, m, "3pass"), 1, 2) / m
-    say(f"  E3 per step: plain 3pass {ms_p:.4f} ms; B2 (FP32 FMA) "
+    say(f"  E3 per step: plain 3pass {ms_p:.4f} ms; B2 (wgmma, 2 launches) "
         f"{prior.get('tridiag', float('nan')):.4f} ms")
     err3, ms3, b3 = e3["3pass"]
     rows.append(("chain_breakdown", err3, ms3, ms_p, *b3))
@@ -813,11 +913,12 @@ def phase8(op, earlier):
     ta.main(DEVICE, op=op)
     cb.main(DEVICE, op=op)
     counts = {**cp.launch_counts, **ta.launch_counts, **cb.launch_counts}
+    steps = {**cp.step_counts, **cb.step_counts}
     say(f"phase 8: the probes' main() in {time.perf_counter() - t0:.1f} s; "
-        f"launches {counts}")
+        f"launches {counts}, chain steps {steps}")
     if any(c <= 0 for c in counts.values()):
         raise AssertionError(f"a probe kernel never launched: {counts}")
-    return rows, counts
+    return rows, counts, steps
 
 
 def _p7_cfg(**kw):
@@ -939,8 +1040,10 @@ def phase7(e0, e_gs):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,3b,4,5,6,7,8")
-    phases = set(ap.parse_args().phases.split(","))
+    ap.add_argument("--phases", default="0,1,2,2s,3,3b,4,5,6,7,8")
+    ap.add_argument("--ghost-tol", type=float, default=None)
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
     try:
         import torch
     except ImportError:
@@ -958,17 +1061,23 @@ def main():
     t_start = time.perf_counter()
     try:
         phase0()
+        if args.ghost_tol is not None:
+            from dmft_lanc_ed_tpu_torch.ops import bs_chain
+            say(f"_GHOST_TOL {bs_chain._GHOST_TOL} -> {args.ghost_tol}")
+            bs_chain._GHOST_TOL = args.ghost_tol
         if "1" in phases:
             phase1()
-        rows, counts = [], {}
+        rows, counts, steps = [], {}, {}
         e_gs = serial = None
         e0 = None
-        if phases & {"2", "3", "3b", "6", "7", "8"}:
+        if phases & {"2", "2s", "3", "3b", "6", "7", "8"}:
             cfg, sec, h, op = sector_854k()
             if phases & {"2", "3", "3b", "7"}:
                 e0, v_gs = host_ground_state(h, sec)
             if "2" in phases:
                 rows = phase2(op, e0, v_gs)
+            if "2s" in phases:
+                phase2s()
             if "3" in phases:
                 e_gs, _ = phase3(cfg, sec, op, e0)
             if "3b" in phases:
@@ -976,17 +1085,21 @@ def main():
             if "6" in phases:
                 rows += phase6(op)
             if "8" in phases:
-                r8, c8 = phase8(op, rows)
+                r8, c8, s8 = phase8(op, rows)
                 rows += r8
                 counts.update(c8)
+                steps.update(s8)
             del op
         if "4" in phases:
-            serial, c4, _ = phase4(e_gs)
+            serial, (c4, s4), _ = phase4(e_gs)
             counts.update(c4)
+            steps.update(s4)
         if "5" in phases:
             # the chain kernels' launches are those of phases 4 and 5
-            for k, n in phase5(e_gs, serial)[0].items():
-                counts[k] = counts.get(k, 0) + n
+            c5, s5 = phase5(e_gs, serial)[0]
+            for tot, add in ((counts, c5), (steps, s5)):
+                for k, n in add.items():
+                    tot[k] = tot.get(k, 0) + n
         if "7" in phases:
             counts.update(phase7(e0, e_gs))
     except Exception:
@@ -1000,6 +1113,8 @@ def main():
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": counts.get(name, 0),
+         # a per-call kernel runs one step a launch
+         "steps": steps.get(name, counts.get(name, 0)),
          "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         for name, err, ms_k, ms_p, b_ms, b_by in rows]}))

@@ -92,8 +92,16 @@ def lib() -> ctypes.CDLL:
         cdll.bs_chain_nblk.argtypes = [i32, i32]
         cdll.bs_tridiag_chain.restype = i32
         cdll.bs_tridiag_chain.argtypes = [vp] * 9 + [i32] * 9 + [vp]
-        cdll.bs_cheb_chain.restype = i32
-        cdll.bs_cheb_chain.argtypes = [vp] * 8 + [f32, f32] + [i32] * 8 + [vp]
+        # B2/B3 on the tensor cores (csrc/bs_chain_tc.cu)
+        cdll.bs_chain_tc_nblk.restype = i32
+        cdll.bs_chain_tc_nblk.argtypes = [i32, i32]
+        cdll.bs_chain_tc_tile.restype = i32
+        cdll.bs_chain_tc_tile.argtypes = [i32, i32]
+        cdll.bs_tridiag_chain_tc.restype = i32
+        cdll.bs_tridiag_chain_tc.argtypes = [vp] * 13 + [i32] * 8 + [vp]
+        cdll.bs_cheb_chain_tc.restype = i32
+        cdll.bs_cheb_chain_tc.argtypes = [vp] * 12 + [f32, f32] + [i32] * 8 \
+            + [vp]
         cdll.bs_matvec_nblk.restype = i32
         cdll.bs_matvec_nblk.argtypes = [i32, i32]
         cdll.bs_matvec.restype = i32

@@ -1,31 +1,29 @@
-// Band-sparse Krylov chain kernels for Hopper (sm_90a), FP32 FMA.
+// The batched GF Lanczos chain kernel B4 for Hopper (sm_90a), FP32 FMA.
 //
-// Replaces the TPU's Pallas chain kernels of dmft_lanc_ed_tpu/ops/bs_chain.py:
-//   B2  _tridiag_kernel     -> bs_tridiag_chain (one chain)
-//   B3  _cheb_kernel        -> bs_cheb_chain
+// Replaces the TPU's Pallas chain kernel of dmft_lanc_ed_tpu/ops/bs_chain.py:
 //   B4  _gf_tridiag_kernel  -> bs_tridiag_chain (a batch of chains, the
 //                              chain index is grid dimension z)
+// B2 and B3 (_tridiag_kernel, _cheb_kernel) ran on this file's product too
+// until they moved to the tensor cores (bs_chain_tc.cu); B4 alone is served
+// here, because its contract is ~1e-7 per matvec and the tensor-core
+// kernels carry the split-bf16 ~1.5e-5.
 //
-// What they compute, on the RCM-permuted sector vector padded to multiples
+// What it computes, on the RCM-permuted sector vector padded to multiples
 // of 128, u[ddp, dup] (f32):
 //   H u = (A B) o u + H_dw,p u + u H_up,p
 // through the panel apply of bs_panel.cuh (the banded slabs, their window
 // clamps, bs_chain.py:138 and :163), over the whole windows.
 //
-// B2/B4 run K plain Lanczos steps (no reorthogonalization) with lazy
-// normalization: vectors are stored unnormalized and their inverse norms
-// ride as scalars. One step is
+// K plain Lanczos steps (no reorthogonalization) with lazy normalization:
+// vectors are stored unnormalized and their inverse norms ride as scalars.
+// One step is
 //   pass 0:  y = s_cur H u_cur - coup u_prv   -> plane prv, partials <u_cur,y>
 //   finish:  alpha = s_cur <u_cur, y>,  co = alpha s_cur
 //   pass 1:  w = y - co u_cur                  -> plane prv, partials |w|^2
 //   finish:  beta = |w|, coup = beta s_cur, s_cur = 1/beta (0 at breakdown)
-// B3 runs K scaled-Chebyshev steps T_K((H - c)/e) v in one pass each,
-//   r = fac (H u_cur - c u_cur) - s_cur s_prv u_prv,  fac = (1 or 2)/e s_cur,
-// normalized every step the same lazy way (T_K grows like cosh(K ...), an
-// unnormalized f32 chain overflows).
 //
 // Hopper runs blocks in no order, so the TPU kernel's sequential grid with
-// its sums carried in SMEM becomes separate launches: every step is a few
+// its sums carried in SMEM becomes separate launches: every step is four
 // kernels launched back to back on one stream, the host never synchronizes
 // inside a chain, and each cross-block sum is reduced by a one-block finish
 // kernel in a fixed order (no float atomics), so reruns are bit-identical.
@@ -34,15 +32,14 @@
 // What bounds it. At the 854k-state (6,6) sector of nbath = 11
 // (ddp = dup = 1024, W_dw = W_up = 640), one H u is 2 * 1024^2 * 1280 =
 // 2.7 GFLOP of banded f32 product (1.34 dw + 1.34 up). The two vector
-// planes (8 MB) and the f32 slabs (5.2 MB) fit in the 50 MB L2 of an H100
-// (NVIDIA data sheet), so a step is bound by FP32 operations, not device
-// memory. The design answers
-// that with a plain shared-memory-tiled FP32 FMA product (64 x 64 output
-// tile per block, 4 x 4 outputs per thread, f32 accumulation over the f32
-// slabs): the same products as the TPU kernels at full f32 fidelity, which
-// meets B4's ~1e-7 contract and therefore B2/B3's split-bf16 ~1.5e-5 one.
-// Tensor cores (3xTF32 or wgmma) and the zero-tile trim (bs_matvec.cu
-// has it) are later work for the chains.
+// planes (8 MB a chain) and the f32 slabs (5.2 MB) fit in the 50 MB L2 of
+// an H100 (NVIDIA data sheet), so a step is bound by FP32 operations, not
+// device memory. The design answers that with a plain shared-memory-tiled
+// FP32 FMA product (64 x 64 output tile per block, 4 x 4 outputs per
+// thread, f32 accumulation over the f32 slabs) at full f32 fidelity. The
+// folded finish kernels and the pipelined staging of bs_chain_tc.cu, and a
+// tensor-core product that keeps ~1e-7 (3xTF32, or the split-bf16 one if
+// its error proves small enough for G), are later work for B4.
 //
 // Every entry point returns cudaGetLastError() of its launches (0 = ok).
 #include "bs_panel.cuh"
@@ -53,18 +50,14 @@ namespace {
 constexpr int S_CUR = 0;      // inverse norm of the vector in plane cur
 constexpr int COUP = 1;       // coefficient of u_prv (tridiag)
 constexpr int CO = 2;         // coefficient of u_cur in pass 1 (tridiag)
-constexpr int S_PRV = 3;      // inverse norm of the vector in plane prv (cheb)
-constexpr int NSTATE = 4;
+constexpr int NSTATE = 4;     // slots a chain (the 4th is unused here)
 
-// MODE 0: Lanczos pass 0 (partials of <u_cur, y>);
-// MODE 1: Chebyshev step (partials of |r|^2).
-template <int MODE>
+// Lanczos pass 0: y in plane prv, partials of <u_cur, y>
 __global__ void __launch_bounds__(NT)
 panel_step(const float* __restrict__ dw, const float* __restrict__ up,
            const float* __restrict__ da, const float* __restrict__ db,
            float* __restrict__ planes, const double* __restrict__ state,
-           double* __restrict__ partials, Geo g, int cur, float c,
-           float inv_e, int k) {
+           double* __restrict__ partials, Geo g, int cur) {
   const int b = blockIdx.z;
   const size_t plane = (size_t)g.ddp * g.dup;
   const float* u = planes + ((size_t)b * 2 + cur) * plane;
@@ -79,17 +72,8 @@ panel_step(const float* __restrict__ dw, const float* __restrict__ up,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   hop_tile_full(acc, dw, up, u, g, r0, c0);
 
-  float f_cur, f_prv, f_c = 0.f;
-  if (MODE == 0) {
-    f_cur = (float)st[S_CUR];                       // y = s_cur Hu - coup u_prv
-    f_prv = (float)st[COUP];
-  } else {
-    const double fac = (k == 0 ? (double)inv_e : 2.0 * (double)inv_e)
-                       * st[S_CUR];
-    f_cur = (float)fac;                             // r = fac (Hu - c u)
-    f_prv = (float)(st[S_CUR] * st[S_PRV]);         //     - s_cur s_prv u_prv
-    f_c = c;
-  }
+  const float f_cur = (float)st[S_CUR];            // y = s_cur Hu - coup u_prv
+  const float f_prv = (float)st[COUP];
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int c4 = c0 + tx * 4;
   double part = 0.0;
@@ -107,13 +91,8 @@ panel_step(const float* __restrict__ dw, const float* __restrict__ up,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float hu = fmaf(d[j], ucv[j], acc[i][j]);
-      if (MODE == 0) {
-        y[j] = f_cur * hu - f_prv * uqv[j];
-        part += (double)ucv[j] * (double)y[j];
-      } else {
-        y[j] = f_cur * (hu - f_c * ucv[j]) - f_prv * uqv[j];
-        part += (double)y[j] * (double)y[j];
-      }
+      y[j] = f_cur * hu - f_prv * uqv[j];
+      part += (double)ucv[j] * (double)y[j];
     }
     *reinterpret_cast<float4*>(p + off) = make_float4(y[0], y[1], y[2], y[3]);
   }
@@ -179,20 +158,6 @@ __global__ void finish_beta(const double* __restrict__ partials, int nblk,
   }
 }
 
-__global__ void finish_cheb(const double* __restrict__ partials, int nblk,
-                            double* __restrict__ state,
-                            double* __restrict__ norm_out) {
-  const double ss =
-      fixed_order_sum(partials + (size_t)blockIdx.x * nblk, nblk);
-  if (threadIdx.x == 0) {
-    double* st = state + (size_t)blockIdx.x * NSTATE;
-    const double nrm = sqrt(ss);
-    st[S_PRV] = st[S_CUR];
-    st[S_CUR] = nrm > 1e-30 ? 1.0 / nrm : 0.0;
-    norm_out[blockIdx.x] = nrm;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -200,7 +165,7 @@ extern "C" {
 // number of per-chain partial sums a step writes (size of `partials` / nb)
 int bs_chain_nblk(int ddp, int dup) { return (ddp / BM) * (dup / BN); }
 
-// K Lanczos steps for nb independent chains (B2: nb = 1; B4: a batch).
+// K Lanczos steps for nb independent chains (B4: a batch).
 // planes [nb, 2, ddp, dup] f32: plane 0 holds the normalized start vector,
 // plane 1 zeros; state [nb, 4] f64 = {1, 0, 0, 0}; partials [nb, nblk] f64;
 // alphas, betas [nb, kk] f64.
@@ -220,44 +185,15 @@ int bs_tridiag_chain(const void* dw, const void* up, const void* da,
   auto* pa = static_cast<double*>(partials);
   for (int k = 0; k < kk; ++k) {
     const int cur = k % 2;
-    panel_step<0><<<grid, NT, 0, s>>>(
+    panel_step<<<grid, NT, 0, s>>>(
         static_cast<const float*>(dw), static_cast<const float*>(up),
         static_cast<const float*>(da), static_cast<const float*>(db), pl, st,
-        pa, g, cur, 0.f, 0.f, k);
+        pa, g, cur);
     finish_alpha<<<nb, FIN_NT, 0, s>>>(pa, nblk, st,
                                        static_cast<double*>(alphas), kk, k);
     tridiag_pass1<<<grid, NT, 0, s>>>(pl, st, pa, g, cur);
     finish_beta<<<nb, FIN_NT, 0, s>>>(pa, nblk, st,
                                       static_cast<double*>(betas), kk, k);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
-}
-
-// K scaled-Chebyshev steps of one chain (B3). planes [2, ddp, dup] f32 as
-// above, state [4] f64 = {1, 0, 0, 0}; norm_out [1] f64 receives the last
-// step's norm. The filtered (unnormalized) vector ends in plane kk % 2.
-int bs_cheb_chain(const void* dw, const void* up, const void* da,
-                  const void* db, void* planes, void* state, void* partials,
-                  void* norm_out, float c, float inv_e, int ddp, int dup,
-                  int rank, int w_dw, int d_dw, int w_up, int d_up, int kk,
-                  void* stream) {
-  const Geo g{ddp, dup, rank, w_dw, d_dw, w_up, d_up};
-  if (!geo_ok(g) || kk <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(dup / BN, ddp / BM, 1);
-  const int nblk = bs_chain_nblk(ddp, dup);
-  auto* pl = static_cast<float*>(planes);
-  auto* st = static_cast<double*>(state);
-  auto* pa = static_cast<double*>(partials);
-  for (int k = 0; k < kk; ++k) {
-    panel_step<1><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(dw), static_cast<const float*>(up),
-        static_cast<const float*>(da), static_cast<const float*>(db), pl, st,
-        pa, g, k % 2, c, inv_e, k);
-    finish_cheb<<<1, FIN_NT, 0, s>>>(pa, nblk, st,
-                                     static_cast<double*>(norm_out));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

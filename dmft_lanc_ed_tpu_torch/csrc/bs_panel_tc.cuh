@@ -1,0 +1,333 @@
+// The split-bf16 band-sparse panel product of the chain kernels B2 and B3
+// (bs_chain_tc.cu) on Hopper's warpgroup tensor cores (wgmma, sm_90a).
+//
+// Replaces the panel apply `_hv_panel` of the TPU's Pallas chain kernels
+// (dmft_lanc_ed_tpu/ops/bs_chain.py: _tridiag_kernel and _cheb_kernel walk
+// it), in the product form those kernels have: the three-pass product of
+// bf16 parts (dmft_lanc_ed_tpu/ops/blocksparse.py _dot3),
+//   x a ~ x_hi a_hi + x_lo a_hi + x_hi a_lo      (f32 accumulation),
+// x_hi = bf16(x), x_lo = bf16(x - x_hi), per 128-tile of the dw and up
+// windows with the JAX package's window clamps (bs_panel.cuh). Precision:
+// the split's ~1.5e-5 relative per product, the TPU kernels' contract.
+//
+// What bounds the product on this card and what the design does about it.
+// At the 854k-state (6,6) sector of nbath = 11 one H u is 3 x 2.7 GFLOP of
+// bf16 products (8 us at the H100's 989 TFLOP/s dense bf16 peak) over
+// operands that all stay in the 50 MB L2: operations bound it, and what a
+// simple kernel loses is the latency of staging, not bandwidth. So:
+// - Both operands of every stage are plain bf16 tiles in global memory. The
+//   slabs are split once per op, and every vector plane is stored as f32
+//   plus its bf16 hi/lo pair, written once by the epilogue that produces the
+//   vector (nothing is split while it is staged).
+// - A block is one warpgroup (128 threads) and owns a 64 x BN output tile,
+//   BN = 128, 64 or 32 chosen by the launcher from the grid (bs_chain_tc.cu).
+//   Its contraction is one continuous stream of 64-deep stages, the dw
+//   window's first and then the up window's, through a ring of 3-4 stages in
+//   dynamic shared memory filled by cp.async (16 B a thread). While the
+//   tensor cores run stage s, the copies of stages s+1 .. s+STAGES-2 are in
+//   flight and the wgmma group of stage s-1 retires; one __syncthreads a
+//   stage.
+// - A stage holds a_hi, a_lo [64 rows x 64 deep] (K-major: the dw slab rows,
+//   or u's rows over the lane window) and b_hi, b_lo [64 deep x BN columns]
+//   (MN-major: u's window rows, or the up slab), each as rows of 128 bytes
+//   in the 128-byte swizzle wgmma's descriptors name (16-byte chunk c of
+//   row r sits at chunk c ^ (r % 8); BN = 128 is two 64-column halves, BN =
+//   32 rows of 64 bytes in the 64-byte swizzle). Per 16-deep step the
+//   warpgroup starts hi.hi, lo.hi, hi.lo as three m64nBNk16 wgmma with both
+//   operands from shared memory and the f32 sums in registers.
+// - Every output element's products are summed in ascending window order
+//   whatever BN is, by one block, so reruns are bit-identical.
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include "bs_panel.cuh"   // Geo, geo_ok, dw_window_base
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int PM = 64;        // output rows per block (wgmma's m64)
+constexpr int PK = 64;        // contraction depth per stage
+constexpr int PNT = 128;      // threads per block: one warpgroup
+constexpr int A_BYTES = PM * PK * 2;          // one part of the A tile
+
+// ring geometry of the 64 x BN tile
+template <int BN>
+struct Ring {
+  static constexpr int STAGES = BN == 64 ? 3 : 4;
+  static constexpr int B_BYTES = PK * BN * 2;         // one part of B
+  static constexpr int STAGE_BYTES = 2 * A_BYTES + 2 * B_BYTES;
+  // + 1024: the ring starts on a 1024-byte boundary (the swizzle's period)
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;
+};
+
+// x -> (bf16(x), bf16(x - bf16(x))), round to nearest even: the JAX
+// package's split (blocksparse.py:130) and torch's .to(torch.bfloat16)
+__device__ __forceinline__ void split2(float x, float y, __nv_bfloat162& hi,
+                                       __nv_bfloat162& lo) {
+  const bf16 hx = __float2bfloat16_rn(x), hy = __float2bfloat16_rn(y);
+  hi = __halves2bfloat162(hx, hy);
+  lo = __halves2bfloat162(__float2bfloat16_rn(x - __bfloat162float(hx)),
+                          __float2bfloat16_rn(y - __bfloat162float(hy)));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory writes (cp.async) -> visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// wgmma's 64-bit shared-memory matrix descriptor: start address, leading
+// and stride byte offsets (all in 16-byte units) and the swizzle (1: 128
+// bytes, 2: 64 bytes)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t swz) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16)
+         | ((uint64_t)(sbo >> 4) << 32) | (swz << 62);
+}
+
+// d += A[64 x 16] B[16 x N]: A K-major, B MN-major (transposed), both from
+// shared memory, bf16 in, f32 out
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Start the cp.async copies of one stage into the ring slot at `slot`
+// (shared address): a_hi/a_lo point at the A tile's first element (64 rows
+// of pitch lda, 64 deep), b_hi/b_lo at the B tile's (64 deep, pitch ldb,
+// BN columns).
+template <int BN>
+__device__ __forceinline__ void load_stage(uint32_t slot, const bf16* a_hi,
+                                           const bf16* a_lo, int lda,
+                                           const bf16* b_hi, const bf16* b_lo,
+                                           int ldb) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {            // A: 64 rows x 8 chunks
+    const int q = it * PNT + t;
+    const int r = q >> 3, c = q & 7;
+    const uint32_t dst = slot + r * 128 + ((c ^ (r & 7)) << 4);
+    const size_t src = (size_t)r * lda + c * 8;
+    cp_async16(dst, a_hi + src);
+    cp_async16(dst + A_BYTES, a_lo + src);
+  }
+  constexpr int CPR = BN / 8;                 // 16-byte chunks per B row
+  const uint32_t bslot = slot + 2 * A_BYTES;
+#pragma unroll
+  for (int it = 0; it < CPR / 2; ++it) {      // B: 64 rows x CPR chunks
+    const int q = it * PNT + t;
+    const int k = q / CPR, c = q % CPR;
+    uint32_t off;
+    if (BN == 128)
+      off = (c >> 3) * (PK * 128) + k * 128 + (((c & 7) ^ (k & 7)) << 4);
+    else if (BN == 64)
+      off = k * 128 + ((c ^ (k & 7)) << 4);
+    else
+      off = k * 64 + ((c ^ ((k >> 1) & 3)) << 4);
+    const size_t src = (size_t)k * ldb + c * 8;
+    cp_async16(bslot + off, b_hi + src);
+    cp_async16(bslot + off + Ring<BN>::B_BYTES, b_lo + src);
+  }
+}
+
+// the three passes of one staged 64-deep step
+template <int BN>
+__device__ __forceinline__ void mma_stage(float (&acc)[BN / 2],
+                                          uint32_t slot) {
+  const uint32_t a_hi = slot, a_lo = slot + A_BYTES;
+  const uint32_t b_hi = slot + 2 * A_BYTES;
+  const uint32_t b_lo = b_hi + Ring<BN>::B_BYTES;
+  // B: 8 rows of depth are one swizzle atom (1024 bytes, or 512 at BN = 32)
+  constexpr uint32_t B_SBO = BN == 32 ? 512 : 1024;
+  constexpr uint32_t B_LBO = PK * 128;        // BN = 128: the next 64 columns
+  constexpr uint64_t B_SWZ = BN == 32 ? 2 : 1;
+#pragma unroll
+  for (int ks = 0; ks < PK / 16; ++ks) {
+    const uint64_t dah = smem_desc(a_hi + ks * 32, 16, 1024, 1);
+    const uint64_t dal = smem_desc(a_lo + ks * 32, 16, 1024, 1);
+    const uint64_t dbh = smem_desc(b_hi + ks * 2 * B_SBO, B_LBO, B_SBO, B_SWZ);
+    const uint64_t dbl = smem_desc(b_lo + ks * 2 * B_SBO, B_LBO, B_SBO, B_SWZ);
+    wgmma_bf16<BN>(acc, dah, dbh);
+    wgmma_bf16<BN>(acc, dal, dbh);
+    wgmma_bf16<BN>(acc, dah, dbl);
+  }
+}
+
+// The split vector planes and slabs the product reads.
+struct SplitOp {
+  const bf16 *dw_hi, *dw_lo;      // [ntd, 128, W_dw]
+  const bf16 *up_hi, *up_lo;      // [ntu, W_up, 128]
+};
+
+// acc = the hop products of the 64 x BN output tile (r0, c0) of H_p u,
+// without the diagonal: the dw slab rows r0.. of panel r0/128 times the
+// window rows of u, then u's rows r0.. over the lane window times the
+// columns c0.. of up slab c0/128, over the whole windows. u_hi/u_lo: the
+// bf16 pair of the plane u [ddp, dup]. `ring`: the block's dynamic shared
+// memory. The accumulator is wgmma's: thread t holds, for j < BN/8 and
+// h < 2, acc[4j + 2h + {0,1}] = element (16 (t/32) + (t%32)/4 + 8h,
+// 8j + 2 (t%4) + {0,1}) of the tile.
+template <int BN>
+__device__ __forceinline__ void panel_product(float (&acc)[BN / 2],
+                                              uint8_t* ring, const SplitOp& op,
+                                              const bf16* __restrict__ u_hi,
+                                              const bf16* __restrict__ u_lo,
+                                              const Geo& g, int r0, int c0) {
+  constexpr int S = Ring<BN>::STAGES;
+  const uint32_t base = (smem_u32(ring) + 1023u) & ~1023u;
+  const int i = r0 / 128, j = c0 / 128;
+  const int w0 = dw_window_base(g, i);
+  const int s_up = min(max((j - g.d_up) * 128, 0), g.dup - g.w_up);
+  const size_t dw_row = ((size_t)i * 128 + (r0 % 128)) * g.w_dw;
+  const size_t up_col = (size_t)j * g.w_up * 128 + (c0 % 128);
+  const int n_dw = g.w_dw / PK, n = n_dw + g.w_up / PK;
+
+  auto fetch = [&](int s) {
+    if (s < n) {
+      const uint32_t slot = base + (s % S) * Ring<BN>::STAGE_BYTES;
+      if (s < n_dw) {
+        const size_t a = dw_row + (size_t)s * PK;
+        const size_t b = (size_t)(w0 + s * PK) * g.dup + c0;
+        load_stage<BN>(slot, op.dw_hi + a, op.dw_lo + a, g.w_dw, u_hi + b,
+                       u_lo + b, g.dup);
+      } else {
+        const int k0 = (s - n_dw) * PK;
+        const size_t a = (size_t)r0 * g.dup + s_up + k0;
+        const size_t b = up_col + (size_t)k0 * 128;
+        load_stage<BN>(slot, u_hi + a, u_lo + a, g.dup, op.up_hi + b,
+                       op.up_lo + b, 128);
+      }
+    }
+    cp_async_commit();          // always: the group count stays uniform
+  };
+
+#pragma unroll
+  for (int q = 0; q < BN / 2; ++q) acc[q] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) fetch(s);
+  cp_async_wait<S - 2>();       // stage 0 has landed
+  fence_async_smem();
+  __syncthreads();
+  for (int s = 0; s < n; ++s) {
+    wgmma_fence();
+    mma_stage<BN>(acc, base + (s % S) * Ring<BN>::STAGE_BYTES);
+    wgmma_commit();
+    wgmma_wait<1>();            // stage s-1's products are done (this warp)
+    cp_async_wait<S - 3>();     // stage s+1 has landed (this thread's part)
+    fence_async_smem();
+    __syncthreads();            // ... for every warp: slot (s-1) % S is free
+    fetch(s + S - 1);
+  }
+  wgmma_wait<0>();
+  // the sums are read from here on: no use of them may move above the wait
+#pragma unroll
+  for (int q = 0; q < BN / 2; ++q) asm volatile("" : "+f"(acc[q])::"memory");
+}
+
+}  // namespace

@@ -39,20 +39,23 @@ from typing import Callable, Tuple
 
 import torch
 
+from ..ops.bf16x3 import _cached, hv_plain, split_bf16, split_op
 from ..ops.blocksparse import _check_cuda_inputs, _geometry, _pop
 from ..ops.factory import resolve_device
-from .bf16x3 import _cached, hv_plain, split_bf16, split_op
 from .trim_ab import random_start, sector_854k
 
 MODES = ("3pass", "1pass", "bf16pair", "nop1", "tileskip")
 
 # kernel launches since the last reset (one per chain call)
 launch_counts = {"chain_breakdown": 0}
+# the chain steps those launches ran (a kernel's time is quoted per step)
+step_counts = {"chain_breakdown": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, step_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def tile_masks(op) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -170,6 +173,7 @@ def make_variant(op, mode: str) -> Callable:
                              f"{v32p.device}")
         out = _launch(op, v32p, kk, mode)
         launch_counts["chain_breakdown"] += 1
+        step_counts["chain_breakdown"] += kk
         return out
     return call
 

@@ -32,11 +32,14 @@ COLS = 128       # vector columns
 
 # kernel launches since the last reset (one per chain call)
 launch_counts = {"chain_probe": 0}
+# the chain steps those launches ran (a kernel's time is quoted per step)
+step_counts = {"chain_probe": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, step_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def chain_plain(v0: torch.Tensor, a: torch.Tensor, kk: int = K
@@ -88,6 +91,7 @@ def chain(v0: torch.Tensor, a: torch.Tensor, kk: int = K
                           torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(err, "chain_probe")
     launch_counts["chain_probe"] += 1
+    step_counts["chain_probe"] += kk
     return norms.reshape(kk, 1), vout
 
 

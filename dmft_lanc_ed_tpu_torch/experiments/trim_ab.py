@@ -32,10 +32,10 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from ..ops.bf16x3 import _cached, hv_plain, split_bf16, split_op
 from ..ops.blocksparse import (_check_cuda_inputs, _geometry, _panel_ss,
                                _pop, build_blocksparse_op, to_padded)
 from ..ops.factory import resolve_device
-from .bf16x3 import _cached, hv_plain, split_bf16, split_op
 
 MODES = ("untrimmed", "dwtrim", "uptrim", "both")
 

@@ -1,12 +1,15 @@
-"""The split-bf16 products of the experiment probes E2 and E3: the plain
-counterparts of ``csrc/bf16x3.cuh`` and the per-op split of the slabs.
+"""The split-bf16 products of the chain kernels B2/B3 and of the experiment
+probes E2/E3: the per-op split of the slabs, and the plain counterparts of
+``csrc/bs_panel_tc.cuh`` and ``csrc/bf16x3.cuh``.
 
 The JAX package reaches f32 accuracy on the TPU's matrix unit with a
 three-pass product of bf16 parts (``ops/blocksparse.py:_dot3``):
 x = x_hi + x_lo with x_hi = bf16(x) and x_lo = bf16(x - x_hi), and
-x a ~ x_hi a_hi + x_lo a_hi + x_hi a_lo. The solver's port keeps its slabs
-in f32 (FP32 FMA kernels); the probes split them here, once per op
-(:func:`split_op`), from ``BsPaddedOp.dw_f32`` / ``up_f32``.
+x a ~ x_hi a_hi + x_lo a_hi + x_hi a_lo. The port's tensor-core kernels
+compute the same form. The op keeps its slabs in f32 (the FP32 FMA kernels
+B1, B4, B5 read those); they are split here, once per op
+(:func:`split_op`), from ``BsPaddedOp.dw_f32`` / ``up_f32``, and stay
+constant over every chain of a sector.
 
 The plain versions multiply the bf16 parts cast to f32 in f32 products
 (each product of two bf16 values is exact in f32), over the dense padded
@@ -22,7 +25,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from ..ops.blocksparse import BsPaddedOp, _pop
+from .blocksparse import BsPaddedOp, _pop
 
 
 def split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

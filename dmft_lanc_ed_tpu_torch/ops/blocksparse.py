@@ -12,9 +12,10 @@ exactly invariant and far above the physics. The per-panel runs of the
 windows' nonzero 128-tiles (:func:`_trim_runs`) are kept on the op, as
 host tuples and as small int32 device tables.
 
-The slabs stay plain f32: the port's kernels run full f32 products, so the
-JAX package's bf16 hi/lo split — a workaround for Mosaic's dot precisions
-— is not carried over.
+The op keeps its slabs in plain f32: B1, B4 and B5 run full f32 products
+over them. The chain kernels B2/B3 run the JAX package's three-pass
+split-bf16 product on the tensor cores; their bf16 hi/lo split of the
+slabs is made from these f32 slabs once per op (``ops/bf16x3.split_op``).
 
 B1, hand-written CUDA in ``csrc/bs_matvec.cu``: one fused matvec
 ``y = s·((A B)∘v + H_dw,p v + v H_up,p)`` with per-128-row-panel sums of

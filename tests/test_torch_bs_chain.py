@@ -4,10 +4,15 @@ the JAX package its Pallas kernels in interpret mode, both from the same
 numpy start vectors.
 
 Tolerances, each with its origin:
-- chain coefficients vs the f64 plain-Lanczos oracle: 5e-4 * scale, the
-  JAX package's split-bf16 contract (test_bs_chain.py:49-52), and port vs
-  JAX 1e-3 * scale (both errors add); the port's f32 chain additionally
-  meets the f32 GF contract, 5e-5 * scale;
+- B2's chain coefficients vs the f64 plain-Lanczos oracle: 5e-4 * scale,
+  the JAX package's split-bf16 contract (test_bs_chain.py:49-52). Port vs
+  JAX: 1e-4 * scale, down from 1e-3 * scale when the port's chain was f32
+  and both sides' errors added: both now run the same three-pass split-bf16
+  product and differ by summation order and by the scalar state (f32 in the
+  Pallas kernel, f64 here), which 16 steps amplify to at most 2.1e-5 over
+  the seeds tried; the gate leaves 5x. B3's filtered vectors, port vs JAX:
+  2e-5 relative (measured 3e-7 to 1.8e-6). B4's plain version stays true
+  f32 and meets the f32 GF contract, 5e-5 * scale, against the oracle;
 - GF chains: first 8 coefficients 5e-5 * scale and continued-fraction
   G(iw) 2e-5 (test_bs_chain.py:126-139);
 - two-stage ground states: Egs 1e-10 (the f64 polish gate, bench.py:51),
@@ -30,6 +35,7 @@ from dmft_lanc_ed_tpu.ops.lanczos import lanczos_tridiag as jax_tridiag
 from dmft_lanc_ed_tpu_torch.convert import hamiltonian_from_reference
 from dmft_lanc_ed_tpu_torch.diag import _blocksparse_ground_state
 from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+from dmft_lanc_ed_tpu_torch.ops.bf16x3 import split_bf16, split_op
 from dmft_lanc_ed_tpu_torch.ops.blocksparse import (build_blocksparse_op,
                                                     from_padded, to_padded)
 from dmft_lanc_ed_tpu_torch.ops.lanczos import tridiag_eigh
@@ -83,15 +89,18 @@ def test_tridiag_chain_matches_reference_and_oracle():
     for al, be in ((al_p, be_p), (al_j, be_j)):
         assert np.abs(al - al_r).max() < 5e-4 * scale
         assert np.abs(be - be_r).max() < 5e-4 * scale
-    assert np.abs(al_p - al_j).max() < 1e-3 * scale
-    assert np.abs(be_p - be_j).max() < 1e-3 * scale
-    assert np.abs(al_p - al_r).max() < 5e-5 * scale
-    assert np.abs(be_p - be_r).max() < 5e-5 * scale
+    assert np.abs(al_p - al_j).max() < 1e-4 * scale
+    assert np.abs(be_p - be_j).max() < 1e-4 * scale
+    # B4's plain version is the same recurrence with true-f32 products
+    al_f, be_f = bc.gf_tridiag_batch_plain(
+        op_p.pop, to_padded(op_p, v0)[None], m)
+    assert np.abs(al_f[0].numpy() - al_r).max() < 5e-5 * scale
+    assert np.abs(be_f[0].numpy()[:m - 1] - be_r[1:]).max() < 5e-5 * scale
     assert bout_p > 0.0
 
 
 def test_cheb_chain_amplifies_ground_state_and_keeps_pad_zero():
-    _, _, _, _, op_p, dense = _ops()
+    _, _, _, op_j, op_p, dense = _ops()
     w, v = np.linalg.eigh(dense)
     v0 = _starts(op_p, 1, 5)[0]
     b = float(w[-1]) + 0.05 * (w[-1] - w[0])
@@ -99,6 +108,9 @@ def test_cheb_chain_amplifies_ground_state_and_keeps_pad_zero():
     vf = bc.cheb_chain(op_p, to_padded(op_p, v0), 32, 0.5 * (b + cut),
                        0.5 * (b - cut))
     _assert_pad_zero(op_p, vf)
+    vj = np.asarray(jbc.cheb_chain(op_j, jax_to_padded(op_j, v0), 32,
+                                   0.5 * (b + cut), 0.5 * (b - cut)))
+    assert np.linalg.norm(vf.numpy() - vj) < 2e-5 * np.linalg.norm(vj)
     vn = from_padded(op_p, vf).numpy().ravel()
     ov0 = abs(np.vdot(v0.ravel(), v[:, 0]))
     ovf = abs(np.vdot(vn / np.linalg.norm(vn), v[:, 0]))
@@ -196,3 +208,75 @@ def test_slab_windows_reproduce_padded_factors(sqn):
     assert np.abs(y_plain.double().numpy() - y_exact).max() < 1e-5 * scale
     assert np.all(y_slab[sec.dim_dw:] == 0) and \
         np.all(y_slab[:, sec.dim_up:] == 0)
+
+
+@pytest.mark.parametrize("kernel", ["tridiag", "cheb"])
+def test_stored_pair_is_the_split_of_its_plane(kernel):
+    """The planes of B2/B3 carry a stored bf16 hi/lo pair that feeds the
+    next product: after plain steps each pair equals split_bf16 of its f32
+    plane bit for bit (the kernels' epilogues write the same bits), and the
+    pad stays exactly zero."""
+    _, _, _, _, op_p, _ = _ops()
+    v0 = to_padded(op_p, _starts(op_p, 1, 7)[0])
+    out = {}
+    if kernel == "tridiag":
+        bc.tridiag_chain_plain(op_p.pop, v0[None], 5, out=out)
+    else:
+        bc.cheb_chain_plain(op_p.pop, v0, 5, 0.3, 0.2, out=out)
+    for plane, (hi, lo) in zip(out["planes"], out["pair"]):
+        assert hi.dtype == lo.dtype == torch.bfloat16
+        ref_hi, ref_lo = split_bf16(plane)
+        assert torch.equal(hi, ref_hi) and torch.equal(lo, ref_lo)
+        assert float((plane - hi.float() - lo.float()).abs().max()) <= \
+            2.0 ** -16 * float(plane.abs().max())
+        _assert_pad_zero(op_p, plane.numpy())
+    # the stored pair and a fresh split give the same product
+    u = out["planes"][0]
+    assert torch.equal(bc.hv_split(op_p.pop, u, out["pair"][0]),
+                       bc.hv_split(op_p.pop, u))
+
+
+def test_gf_plain_version_stays_f32():
+    """B4 keeps true-f32 products: its plain version is the recurrence over
+    _hv_plain, not the split product B2's plain version runs."""
+    _, _, _, _, op_p, _ = _ops()
+    vb = to_padded(op_p, _starts(op_p, 2, 9))
+    al_g, be_g = bc.gf_tridiag_batch_plain(op_p.pop, vb, 6)
+    al_f, be_f = bc.tridiag_chain_plain(op_p.pop, vb, 6, hv=bc._hv_plain)
+    al_s, be_s = bc.tridiag_chain_plain(op_p.pop, vb, 6)
+    assert torch.equal(al_g, al_f) and torch.equal(be_g, be_f)
+    assert not torch.equal(al_g, al_s)
+    scale = max(1.0, float(al_f.abs().max()))
+    assert float((al_s - al_f).abs().max()) < 5e-4 * scale
+
+
+def test_seed_counts_count_reached_and_missed():
+    _, _, _, _, op_p, _ = _ops()
+    bc.reset_launch_counts()
+    assert bc.seed_counts == {"reached": 0, "missed": 0}
+    _, _, eta = bc.ground_state_seed(op_p, m_tri=24, m_cheb=32)
+    assert eta <= 3e-3 and bc.seed_counts == {"reached": 1, "missed": 0}
+    # one round cannot reach an eta no f32 chain reaches
+    _, _, eta = bc.ground_state_seed(op_p, m_tri=8, m_cheb=16, max_rounds=1,
+                                     eta_target=1e-12)
+    assert eta > 1e-12 and bc.seed_counts == {"reached": 1, "missed": 1}
+    # on the CPU the plain versions ran: no kernel launch, no kernel step
+    assert all(n == 0 for n in bc.launch_counts.values())
+    assert all(n == 0 for n in bc.step_counts.values())
+    bc.reset_launch_counts()
+    assert bc.seed_counts == {"reached": 0, "missed": 0}
+
+
+def test_chain_bytes_count_split_slabs_and_pair_planes():
+    _, _, _, _, op_p, _ = _ops()
+    pop = op_p.pop
+    ddp, dup = pop.padded_shape
+    sp = split_op(pop)
+    slab_f32 = 4 * (pop.dw_f32.numel() + pop.up_f32.numel())
+    slab_split = sum(t.numel() * t.element_size()
+                     for t in (sp.dw_hi, sp.dw_lo, sp.up_hi, sp.up_lo))
+    diag = 4 * (pop.diag_a.numel() + pop.diag_b.numel())
+    per_chain = 2 * 4 * ddp * dup + 2 * 2 * 2 * ddp * dup   # planes + pairs
+    assert bc._chain_bytes(pop, 0) == slab_f32 + slab_split + diag
+    assert bc._chain_bytes(pop, 3) - bc._chain_bytes(pop, 0) == 3 * per_chain
+    assert bc.chain_applicable(op_p)

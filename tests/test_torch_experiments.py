@@ -33,7 +33,7 @@ from jax.experimental import pallas as jpl
 import dmft_lanc_ed_tpu as ed
 from dmft_lanc_ed_tpu.ops import blocksparse as jbs
 from dmft_lanc_ed_tpu_torch.convert import hamiltonian_from_reference
-from dmft_lanc_ed_tpu_torch.experiments import bf16x3
+from dmft_lanc_ed_tpu_torch.ops import bf16x3
 from dmft_lanc_ed_tpu_torch.experiments import chain_breakdown as pcb
 from dmft_lanc_ed_tpu_torch.experiments import chain_probe as pcp
 from dmft_lanc_ed_tpu_torch.experiments import trim_ab as pta

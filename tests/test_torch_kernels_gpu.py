@@ -10,11 +10,12 @@ against the JAX package instead). On a machine with a card:
 machine need not have). The NCCL tests at the end need two cards (one
 rank per card; NCCL refuses two ranks on one) and skip with fewer.
 
-Tolerances: both sides are f32 recurrences over the same operator with
-f32 products summed in different orders, so the first chain coefficients
-agree to ~1e-6 relative; the bounds below are the B4 contract, 5e-5 *
-scale (test_bs_chain.py:126-139), and 1e-4 relative for the filtered
-vectors.
+Tolerances: a kernel and its plain version run the same recurrence in
+f32 over the same operator with the same product form (B2/B3: three-pass
+split-bf16 products, whose bf16 x bf16 terms are exact in f32; B4: true
+f32), summed in different orders, so the first chain coefficients agree to
+~1e-6 relative; the bounds below are the B4 contract, 5e-5 * scale
+(test_bs_chain.py:126-139), and 1e-4 relative for the filtered vectors.
 """
 import numpy as np
 import pytest
@@ -59,36 +60,85 @@ def _starts(op, n, seed=0):
 
 
 GEOMETRIES = [(6, (3, 3)), (9, (5, 4)), (11, (6, 5))]
+# B2/B3 pick their output tile from the grid and the card's SM count. On an
+# H100 (132 SMs) these reach every instantiation: (11, (3, 4)) pads to
+# 512 x 256, a grid far smaller than the card (64 x 32 tiles, as the first
+# two); (11, (6, 5)) to 896 x 1024 (64 x 64); (12, (6, 6)) to 1792 x 1792,
+# several waves (64 x 128)
+TC_GEOMETRIES = GEOMETRIES + [(11, (3, 4)), (12, (6, 6))]
 
 
-@pytest.mark.parametrize("nbath,sqn", GEOMETRIES)
+@pytest.mark.parametrize("nbath,sqn", TC_GEOMETRIES)
 def test_tridiag_kernel_matches_plain(cuda, nbath, sqn):
     op = _op(cuda, nbath, sqn)
     v0 = _starts(op, 1)[0]
-    before = bc.launch_counts["tridiag"]
+    before = bc.launch_counts["tridiag"], bc.step_counts["tridiag"]
     al_k, be_k = bc.tridiag_call(op, v0, 32)
-    assert bc.launch_counts["tridiag"] == before + 1
+    assert bc.launch_counts["tridiag"] == before[0] + 1
+    assert bc.step_counts["tridiag"] == before[1] + 32
     al_p, be_p = bc.tridiag_chain_plain(op.pop, v0[None], 32)
     scale = max(1.0, float(al_p.abs().max()))
     assert float((al_k[:12] - al_p[0, :12]).abs().max()) < 5e-5 * scale
     assert float((be_k[:12] - be_p[0, :12]).abs().max()) < 5e-5 * scale
+    al_r, be_r = bc.tridiag_call(op, v0, 32)             # rerun: same bits
+    assert torch.equal(al_k, al_r) and torch.equal(be_k, be_r)
 
 
-@pytest.mark.parametrize("nbath,sqn", GEOMETRIES)
-def test_cheb_kernel_matches_plain(cuda, nbath, sqn):
-    op = _op(cuda, nbath, sqn)
-    v0 = _starts(op, 1, 1)[0]
+def _cheb_window(op, v0):
     al, be = bc.tridiag_chain_plain(op.pop, v0[None], 32)
     th = np.linalg.eigvalsh(np.diag(al[0].cpu().numpy())
                             + np.diag(be[0, :-1].cpu().numpy(), 1)
                             + np.diag(be[0, :-1].cpu().numpy(), -1))
-    c, e = 0.5 * (th[-1] + th[0]) + 0.1, 0.6 * (th[-1] - th[0])
+    return 0.5 * (th[-1] + th[0]) + 0.1, 0.6 * (th[-1] - th[0])
+
+
+@pytest.mark.parametrize("nbath,sqn", TC_GEOMETRIES)
+def test_cheb_kernel_matches_plain(cuda, nbath, sqn):
+    op = _op(cuda, nbath, sqn)
+    v0 = _starts(op, 1, 1)[0]
+    c, e = _cheb_window(op, v0)
+    before = bc.launch_counts["cheb"], bc.step_counts["cheb"]
     vk, nk = bc.cheb_call(op, v0, 32, c, 1.0 / e)
+    assert bc.launch_counts["cheb"] == before[0] + 1
+    assert bc.step_counts["cheb"] == before[1] + 32
     vp, npl = bc.cheb_chain_plain(op.pop, v0, 32, c, 1.0 / e)
     rel = float((vk / nk - vp / npl).norm() / (vp / npl).norm())
     assert rel < 1e-4
     assert bool(torch.all(vk[op.dim_dw:] == 0))          # pad stays zero
     assert bool(torch.all(vk[:, op.dim_up:] == 0))
+    vr, nr = bc.cheb_call(op, v0, 32, c, 1.0 / e)        # rerun: same bits
+    assert torch.equal(vk, vr) and torch.equal(nk, nr)
+
+
+def test_chain_geometries_reach_every_output_tile(cuda):
+    from dmft_lanc_ed_tpu_torch import _kernels
+    lib = _kernels.lib()
+    tiles = set()
+    for nbath, sqn in TC_GEOMETRIES:
+        cfg = pt.read_input(None, norb=1, nbath=nbath, uloc=(2.0,))
+        sec = pt.SectorTable(cfg).sector(pt.qn(*sqn))
+        tiles.add(lib.bs_chain_tc_tile(bs._pad128(sec.dim_dw),
+                                       bs._pad128(sec.dim_up)))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms == 132:
+        assert tiles == {32, 64, 128}
+    else:
+        assert tiles <= {32, 64, 128}
+
+
+def test_chain_kernel_stores_the_split_pair(cuda):
+    """One B3 step with c = 0, e = 1 is r = H u: the kernel's product
+    against the split plain product (the same bf16 x bf16 terms, summed in
+    another order: 1e-6 x max|H u|), and near the true-f32 product (the
+    split's ~1.5e-5)."""
+    op = _op(cuda, 11, (5, 4))
+    v0 = _starts(op, 1, 13)[0]
+    hu, nrm = bc._run_cheb_tc(op.pop, v0, 1, 0.0, 1.0)
+    ref = bc.hv_split(op.pop, v0)
+    top = float(ref.abs().max())
+    assert float((hu - ref).abs().max()) <= 1e-6 * top
+    assert float((hu - bc._hv_plain(op.pop, v0)).abs().max()) <= 5e-5 * top
+    assert abs(float(nrm) - float(ref.double().norm())) <= 1e-6 * float(nrm)
 
 
 @pytest.mark.parametrize("nbath,sqn", GEOMETRIES)
@@ -109,6 +159,19 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
         bc.tridiag_call(op, v0.double(), 8)
     with pytest.raises(ValueError):
         bc.tridiag_call(op, v0[:, :64].contiguous(), 8)
+    with pytest.raises(ValueError):
+        bc.cheb_call(op, v0.double(), 8, 0.0, 1.0)
+    with pytest.raises(ValueError):                       # not contiguous
+        bc.tridiag_call(op, v0.t().contiguous().t(), 8)
+    with pytest.raises(ValueError):
+        bc.cheb_call(op, v0.t().contiguous().t(), 8, 0.0, 1.0)
+    with pytest.raises(ValueError):                       # two vectors
+        bc.tridiag_call(op, _starts(op, 2), 8)
+    op_cpu = _op("cpu", 6, (3, 3))                       # slabs on the CPU
+    with pytest.raises(ValueError):
+        bc.tridiag_call(op_cpu, v0, 8)
+    with pytest.raises(ValueError):
+        bc.cheb_call(op_cpu, v0, 8, 0.0, 1.0)
     with pytest.raises(ValueError):
         bs.matvec_bs_padded(op, v0.double())
     with pytest.raises(ValueError):
