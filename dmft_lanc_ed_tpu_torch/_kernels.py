@@ -88,20 +88,21 @@ def lib() -> ctypes.CDLL:
     if _LIB is None:
         cdll = ctypes.CDLL(build())
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        cdll.bs_chain_nblk.restype = i32
-        cdll.bs_chain_nblk.argtypes = [i32, i32]
-        cdll.bs_tridiag_chain.restype = i32
-        cdll.bs_tridiag_chain.argtypes = [vp] * 9 + [i32] * 9 + [vp]
-        # B2/B3 on the tensor cores (csrc/bs_chain_tc.cu)
+        # the chain kernels B2/B3/B4 on the tensor cores (csrc/bs_chain_tc.cu)
         cdll.bs_chain_tc_nblk.restype = i32
         cdll.bs_chain_tc_nblk.argtypes = [i32, i32]
         cdll.bs_chain_tc_tile.restype = i32
-        cdll.bs_chain_tc_tile.argtypes = [i32, i32]
+        cdll.bs_chain_tc_tile.argtypes = [i32] * 4
         cdll.bs_tridiag_chain_tc.restype = i32
         cdll.bs_tridiag_chain_tc.argtypes = [vp] * 13 + [i32] * 8 + [vp]
         cdll.bs_cheb_chain_tc.restype = i32
         cdll.bs_cheb_chain_tc.argtypes = [vp] * 12 + [f32, f32] + [i32] * 8 \
             + [vp]
+        # B4 and its one-product entry
+        cdll.bs_gf_tridiag_chain_tc.restype = i32
+        cdll.bs_gf_tridiag_chain_tc.argtypes = [vp] * 15 + [i32] * 9 + [vp]
+        cdll.bs_hv_tc.restype = i32
+        cdll.bs_hv_tc.argtypes = [vp] * 10 + [i32] * 8 + [vp]
         cdll.bs_matvec_nblk.restype = i32
         cdll.bs_matvec_nblk.argtypes = [i32, i32]
         cdll.bs_matvec.restype = i32

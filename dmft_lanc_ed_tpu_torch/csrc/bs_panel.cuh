@@ -1,7 +1,8 @@
-// The band-sparse panel apply shared by the chain kernels (bs_chain.cu) and
-// the per-call matvec kernel (bs_matvec.cu), FP32 FMA for sm_90a. The
-// probes' tensor-core tile product (bf16x3.cuh) takes its geometry, window
-// clamp, diagonal and fixed-order sum from here.
+// The band-sparse panel apply of the per-call matvec kernels B1 and B5
+// (bs_matvec.cu), FP32 FMA for sm_90a. The tensor-core panel product of the
+// chain kernels (bs_panel_tc.cuh) and the probes' tile product (bf16x3.cuh)
+// take their geometry, window clamp, diagonal and fixed-order sums from
+// here.
 //
 // On the RCM-permuted sector vector padded to multiples of 128, u[ddp, dup]
 // (f32), a block computes one 64 x 64 output tile of
@@ -14,9 +15,9 @@
 // the JAX package's blocksparse.py:579 and :597.
 //
 // A window is walked as RUNS: half-open ranges [t0, t1) of 128-tiles,
-// relative to the clamped window start, in ascending order. The chain
-// kernels pass one run covering the whole window; the per-call matvec may
-// pass the runs of the window's nonzero tiles, skipping the all-zero ones.
+// relative to the clamped window start, in ascending order. B1b and B5
+// pass one run covering the whole window; B1a passes the runs of the
+// window's nonzero tiles, skipping the all-zero ones.
 // A skipped tile only ever adds fmaf(0, x, acc) == acc, and every output
 // element sees the remaining products in the same ascending order, so the
 // trimmed and the whole-window products agree bit for bit.
@@ -124,18 +125,6 @@ __device__ __forceinline__ void hop_tile(float acc[4][4],
     gemm_acc(acc, u + (size_t)r0 * g.dup + s_up + k0, g.dup,
              up_cols + (size_t)k0 * 128, 128, k1 - k0, As, Bs);
   }
-}
-
-// hop_tile over the whole windows (one run each)
-__device__ __forceinline__ void hop_tile_full(float acc[4][4],
-                                              const float* __restrict__ dw,
-                                              const float* __restrict__ up,
-                                              const float* __restrict__ u,
-                                              const Geo& g, int r0, int c0) {
-  const int dw_run[2] = {0, g.w_dw / 128};
-  const int up_run[2] = {0, g.w_up / 128};
-  hop_tile(acc, dw, up, u, dw_window_base(g, r0 / 128), u, g, r0, c0, dw_run,
-           1, up_run, 1);
 }
 
 // separable diagonal (A B)[r, c..c+3]

@@ -1,23 +1,30 @@
-// The split-bf16 band-sparse panel product of the chain kernels B2 and B3
-// (bs_chain_tc.cu) on Hopper's warpgroup tensor cores (wgmma, sm_90a).
+// The split-bf16 band-sparse panel product of the chain kernels B2, B3 and
+// B4 (bs_chain_tc.cu) on Hopper's warpgroup tensor cores (wgmma, sm_90a).
 //
-// Replaces the panel apply `_hv_panel` of the TPU's Pallas chain kernels
-// (dmft_lanc_ed_tpu/ops/bs_chain.py: _tridiag_kernel and _cheb_kernel walk
-// it), in the product form those kernels have: the three-pass product of
-// bf16 parts (dmft_lanc_ed_tpu/ops/blocksparse.py _dot3),
+// Replaces the panel applies of the TPU's Pallas chain kernels
+// (dmft_lanc_ed_tpu/ops/bs_chain.py), in the product form each has. With
+// P = 2 bf16 parts a side (B2 and B3: `_hv_panel`, walked by _tridiag_kernel
+// and _cheb_kernel), the three-pass product of blocksparse.py _dot3,
 //   x a ~ x_hi a_hi + x_lo a_hi + x_hi a_lo      (f32 accumulation),
-// x_hi = bf16(x), x_lo = bf16(x - x_hi), per 128-tile of the dw and up
-// windows with the JAX package's window clamps (bs_panel.cuh). Precision:
-// the split's ~1.5e-5 relative per product, the TPU kernels' contract.
+// x_hi = bf16(x), x_lo = bf16(x - x_hi): the split's ~1.5e-5 relative per
+// product, the TPU's B2/B3 contract. With P = 3 (B4: `_hv_panel_f32` of
+// _gf_tridiag_kernel, whose dots run at precision HIGHEST, Mosaic's six bf16
+// passes over a three-part split), the six-pass product
+//   x a ~ hi.hi + hi.mid + mid.hi + hi.lo + lo.hi + mid.mid,
+// mid = bf16(x - hi), lo = bf16(x - hi - mid): 24 significant bits a side,
+// f32's own, for the GF chains' ~1e-7 per-matvec contract. Every split is
+// round to nearest even, in f32 arithmetic, per 128-tile of the dw and up
+// windows with the JAX package's window clamps (bs_panel.cuh).
 //
 // What bounds the product on this card and what the design does about it.
-// At the 854k-state (6,6) sector of nbath = 11 one H u is 3 x 2.7 GFLOP of
-// bf16 products (8 us at the H100's 989 TFLOP/s dense bf16 peak) over
-// operands that all stay in the 50 MB L2: operations bound it, and what a
-// simple kernel loses is the latency of staging, not bandwidth. So:
+// At the 854k-state (6,6) sector of nbath = 11 one H u is P(P+1)/2 x 2.0
+// GFLOP of bf16 products over the nonzero window tiles (6 us three-pass, 12
+// us six-pass at the H100's 989 TFLOP/s dense bf16 peak) over operands that
+// all stay in the 50 MB L2: operations bound it, and what a simple kernel
+// loses is the latency of staging, not bandwidth. So:
 // - Both operands of every stage are plain bf16 tiles in global memory. The
 //   slabs are split once per op, and every vector plane is stored as f32
-//   plus its bf16 hi/lo pair, written once by the epilogue that produces the
+//   plus its P bf16 parts, written once by the epilogue that produces the
 //   vector (nothing is split while it is staged).
 // - A block is one warpgroup (128 threads) and owns a 64 x BN output tile,
 //   BN = 128, 64 or 32 chosen by the launcher from the grid (bs_chain_tc.cu).
@@ -27,16 +34,22 @@
 //   tensor cores run stage s, the copies of stages s+1 .. s+STAGES-2 are in
 //   flight and the wgmma group of stage s-1 retires; one __syncthreads a
 //   stage.
-// - A stage holds a_hi, a_lo [64 rows x 64 deep] (K-major: the dw slab rows,
-//   or u's rows over the lane window) and b_hi, b_lo [64 deep x BN columns]
+// - A stage holds the P parts of A [64 rows x 64 deep] (K-major: the dw slab
+//   rows, or u's rows over the lane window) and of B [64 deep x BN columns]
 //   (MN-major: u's window rows, or the up slab), each as rows of 128 bytes
 //   in the 128-byte swizzle wgmma's descriptors name (16-byte chunk c of
 //   row r sits at chunk c ^ (r % 8); BN = 128 is two 64-column halves, BN =
 //   32 rows of 64 bytes in the 64-byte swizzle). Per 16-deep step the
-//   warpgroup starts hi.hi, lo.hi, hi.lo as three m64nBNk16 wgmma with both
-//   operands from shared memory and the f32 sums in registers.
+//   warpgroup starts the passes as m64nBNk16 wgmma with both operands from
+//   shared memory and the f32 sums in registers. At six passes the tensor
+//   cores' f32 accumulation over the interleaved passes strays from an FMA
+//   chain's: summed that way, B4's product missed chip_smoke.py's gate of
+//   twice the FP32 FMA product's error against f64. So each stage's
+//   products go to a zeroed register tile that FP32 adds then fold into the
+//   sum, and the stage's wgmma group is waited for before the add.
 // - Every output element's products are summed in ascending window order
-//   whatever BN is, by one block, so reruns are bit-identical.
+//   whatever BN is, by one block, so reruns are bit-identical and an
+//   element's sum does not depend on the tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,15 +64,20 @@ constexpr int PM = 64;        // output rows per block (wgmma's m64)
 constexpr int PK = 64;        // contraction depth per stage
 constexpr int PNT = 128;      // threads per block: one warpgroup
 constexpr int A_BYTES = PM * PK * 2;          // one part of the A tile
+constexpr int SM_SMEM = 233472;               // shared memory of an SM
 
-// ring geometry of the 64 x BN tile
-template <int BN>
+// ring geometry of the 64 x BN tile with P parts a side: 3-4 stages at
+// three passes (two blocks an SM below BN = 128), 3 at six (a stage of
+// BN = 128 is 72 KB); BLOCKS: the blocks an SM holds at once
+template <int BN, int P>
 struct Ring {
-  static constexpr int STAGES = BN == 64 ? 3 : 4;
+  static constexpr int STAGES = P == 3 || BN == 64 ? 3 : 4;
   static constexpr int B_BYTES = PK * BN * 2;         // one part of B
-  static constexpr int STAGE_BYTES = 2 * A_BYTES + 2 * B_BYTES;
+  static constexpr int STAGE_BYTES = P * (A_BYTES + B_BYTES);
   // + 1024: the ring starts on a 1024-byte boundary (the swizzle's period)
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;
+  // + 3 KB a block: its static shared memory and the SM's reserve
+  static constexpr int BLOCKS = 2 * (SMEM_BYTES + 3072) <= SM_SMEM ? 2 : 1;
 };
 
 // x -> (bf16(x), bf16(x - bf16(x))), round to nearest even: the JAX
@@ -70,6 +88,35 @@ __device__ __forceinline__ void split2(float x, float y, __nv_bfloat162& hi,
   hi = __halves2bfloat162(hx, hy);
   lo = __halves2bfloat162(__float2bfloat16_rn(x - __bfloat162float(hx)),
                           __float2bfloat16_rn(y - __bfloat162float(hy)));
+}
+
+// x -> (hi, mid, lo): hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+// mid), round to nearest even; both differences are exact in f32
+// (ops/bf16x3.py split3_bf16)
+__device__ __forceinline__ void split3(float x, float y, __nv_bfloat162& hi,
+                                       __nv_bfloat162& mid,
+                                       __nv_bfloat162& lo) {
+  const bf16 hx = __float2bfloat16_rn(x), hy = __float2bfloat16_rn(y);
+  const float rx = x - __bfloat162float(hx), ry = y - __bfloat162float(hy);
+  const bf16 mx = __float2bfloat16_rn(rx), my = __float2bfloat16_rn(ry);
+  hi = __halves2bfloat162(hx, hy);
+  mid = __halves2bfloat162(mx, my);
+  lo = __halves2bfloat162(__float2bfloat16_rn(rx - __bfloat162float(mx)),
+                          __float2bfloat16_rn(ry - __bfloat162float(my)));
+}
+
+// the P parts of the pair of f32 values (x, y) into parts[p][off] (p < P)
+template <int P>
+__device__ __forceinline__ void store_parts(float x, float y, bf16* parts,
+                                            size_t plane, size_t off) {
+  __nv_bfloat162 v[3];
+  if constexpr (P == 2)
+    split2(x, y, v[0], v[1]);
+  else
+    split3(x, y, v[0], v[1], v[2]);
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    *reinterpret_cast<__nv_bfloat162*>(parts + p * plane + off) = v[p];
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -199,13 +246,13 @@ __device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da,
 }
 
 // Start the cp.async copies of one stage into the ring slot at `slot`
-// (shared address): a_hi/a_lo point at the A tile's first element (64 rows
-// of pitch lda, 64 deep), b_hi/b_lo at the B tile's (64 deep, pitch ldb,
+// (shared address): a[p] points at part p of the A tile's first element (64
+// rows of pitch lda, 64 deep), b[p] at the B tile's (64 deep, pitch ldb,
 // BN columns).
-template <int BN>
-__device__ __forceinline__ void load_stage(uint32_t slot, const bf16* a_hi,
-                                           const bf16* a_lo, int lda,
-                                           const bf16* b_hi, const bf16* b_lo,
+template <int BN, int P>
+__device__ __forceinline__ void load_stage(uint32_t slot,
+                                           const bf16* const (&a)[P], int lda,
+                                           const bf16* const (&b)[P],
                                            int ldb) {
   const int t = threadIdx.x;
 #pragma unroll
@@ -214,11 +261,11 @@ __device__ __forceinline__ void load_stage(uint32_t slot, const bf16* a_hi,
     const int r = q >> 3, c = q & 7;
     const uint32_t dst = slot + r * 128 + ((c ^ (r & 7)) << 4);
     const size_t src = (size_t)r * lda + c * 8;
-    cp_async16(dst, a_hi + src);
-    cp_async16(dst + A_BYTES, a_lo + src);
+#pragma unroll
+    for (int p = 0; p < P; ++p) cp_async16(dst + p * A_BYTES, a[p] + src);
   }
   constexpr int CPR = BN / 8;                 // 16-byte chunks per B row
-  const uint32_t bslot = slot + 2 * A_BYTES;
+  const uint32_t bslot = slot + P * A_BYTES;
 #pragma unroll
   for (int it = 0; it < CPR / 2; ++it) {      // B: 64 rows x CPR chunks
     const int q = it * PNT + t;
@@ -231,55 +278,71 @@ __device__ __forceinline__ void load_stage(uint32_t slot, const bf16* a_hi,
     else
       off = k * 64 + ((c ^ ((k >> 1) & 3)) << 4);
     const size_t src = (size_t)k * ldb + c * 8;
-    cp_async16(bslot + off, b_hi + src);
-    cp_async16(bslot + off + Ring<BN>::B_BYTES, b_lo + src);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      cp_async16(bslot + off + p * Ring<BN, P>::B_BYTES, b[p] + src);
   }
 }
 
-// the three passes of one staged 64-deep step
-template <int BN>
+// the passes of one staged 64-deep step: three at P = 2 (hi.hi, lo.hi,
+// hi.lo), six at P = 3 (hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid)
+template <int BN, int P>
 __device__ __forceinline__ void mma_stage(float (&acc)[BN / 2],
                                           uint32_t slot) {
-  const uint32_t a_hi = slot, a_lo = slot + A_BYTES;
-  const uint32_t b_hi = slot + 2 * A_BYTES;
-  const uint32_t b_lo = b_hi + Ring<BN>::B_BYTES;
+  const uint32_t bslot = slot + P * A_BYTES;
   // B: 8 rows of depth are one swizzle atom (1024 bytes, or 512 at BN = 32)
   constexpr uint32_t B_SBO = BN == 32 ? 512 : 1024;
   constexpr uint32_t B_LBO = PK * 128;        // BN = 128: the next 64 columns
   constexpr uint64_t B_SWZ = BN == 32 ? 2 : 1;
 #pragma unroll
   for (int ks = 0; ks < PK / 16; ++ks) {
-    const uint64_t dah = smem_desc(a_hi + ks * 32, 16, 1024, 1);
-    const uint64_t dal = smem_desc(a_lo + ks * 32, 16, 1024, 1);
-    const uint64_t dbh = smem_desc(b_hi + ks * 2 * B_SBO, B_LBO, B_SBO, B_SWZ);
-    const uint64_t dbl = smem_desc(b_lo + ks * 2 * B_SBO, B_LBO, B_SBO, B_SWZ);
-    wgmma_bf16<BN>(acc, dah, dbh);
-    wgmma_bf16<BN>(acc, dal, dbh);
-    wgmma_bf16<BN>(acc, dah, dbl);
+    uint64_t da[P], db[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      da[p] = smem_desc(slot + p * A_BYTES + ks * 32, 16, 1024, 1);
+      db[p] = smem_desc(bslot + p * Ring<BN, P>::B_BYTES + ks * 2 * B_SBO,
+                        B_LBO, B_SBO, B_SWZ);
+    }
+    if constexpr (P == 2) {
+      wgmma_bf16<BN>(acc, da[0], db[0]);
+      wgmma_bf16<BN>(acc, da[1], db[0]);
+      wgmma_bf16<BN>(acc, da[0], db[1]);
+    } else {
+      wgmma_bf16<BN>(acc, da[0], db[0]);
+      wgmma_bf16<BN>(acc, da[0], db[1]);
+      wgmma_bf16<BN>(acc, da[1], db[0]);
+      wgmma_bf16<BN>(acc, da[0], db[P - 1]);
+      wgmma_bf16<BN>(acc, da[P - 1], db[0]);
+      wgmma_bf16<BN>(acc, da[1], db[1]);
+    }
   }
 }
 
-// The split vector planes and slabs the product reads.
+// The split slabs the product reads: part p of the dw slabs [ntd, 128,
+// W_dw] and of the up slabs [ntu, W_up, 128] (p < P).
 struct SplitOp {
-  const bf16 *dw_hi, *dw_lo;      // [ntd, 128, W_dw]
-  const bf16 *up_hi, *up_lo;      // [ntu, W_up, 128]
+  const bf16* dw[3];
+  const bf16* up[3];
 };
 
 // acc = the hop products of the 64 x BN output tile (r0, c0) of H_p u,
 // without the diagonal: the dw slab rows r0.. of panel r0/128 times the
 // window rows of u, then u's rows r0.. over the lane window times the
-// columns c0.. of up slab c0/128, over the whole windows. u_hi/u_lo: the
-// bf16 pair of the plane u [ddp, dup]. `ring`: the block's dynamic shared
-// memory. The accumulator is wgmma's: thread t holds, for j < BN/8 and
-// h < 2, acc[4j + 2h + {0,1}] = element (16 (t/32) + (t%32)/4 + 8h,
-// 8j + 2 (t%4) + {0,1}) of the tile.
-template <int BN>
+// columns c0.. of up slab c0/128, over the whole windows. u_parts: the P
+// bf16 parts of the plane u [ddp, dup], `plane` elements apart. `ring`: the
+// block's dynamic shared memory. The accumulator is wgmma's: thread t
+// holds, for j < BN/8 and h < 2, acc[4j + 2h + {0,1}] = element (16 (t/32)
+// + (t%32)/4 + 8h, 8j + 2 (t%4) + {0,1}) of the tile. At P = 3 each
+// stage's products are summed by wgmma into a zeroed register tile, then
+// added to acc with FP32 adds: the tensor cores' accumulation spans one
+// 64-deep stage.
+template <int BN, int P>
 __device__ __forceinline__ void panel_product(float (&acc)[BN / 2],
                                               uint8_t* ring, const SplitOp& op,
-                                              const bf16* __restrict__ u_hi,
-                                              const bf16* __restrict__ u_lo,
-                                              const Geo& g, int r0, int c0) {
-  constexpr int S = Ring<BN>::STAGES;
+                                              const bf16* __restrict__ u_parts,
+                                              size_t plane, const Geo& g,
+                                              int r0, int c0) {
+  constexpr int S = Ring<BN, P>::STAGES;
   const uint32_t base = (smem_u32(ring) + 1023u) & ~1023u;
   const int i = r0 / 128, j = c0 / 128;
   const int w0 = dw_window_base(g, i);
@@ -290,18 +353,28 @@ __device__ __forceinline__ void panel_product(float (&acc)[BN / 2],
 
   auto fetch = [&](int s) {
     if (s < n) {
-      const uint32_t slot = base + (s % S) * Ring<BN>::STAGE_BYTES;
+      const uint32_t slot = base + (s % S) * Ring<BN, P>::STAGE_BYTES;
+      const bf16* a[P];
+      const bf16* b[P];
       if (s < n_dw) {
-        const size_t a = dw_row + (size_t)s * PK;
-        const size_t b = (size_t)(w0 + s * PK) * g.dup + c0;
-        load_stage<BN>(slot, op.dw_hi + a, op.dw_lo + a, g.w_dw, u_hi + b,
-                       u_lo + b, g.dup);
+        const size_t ao = dw_row + (size_t)s * PK;
+        const size_t bo = (size_t)(w0 + s * PK) * g.dup + c0;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          a[p] = op.dw[p] + ao;
+          b[p] = u_parts + p * plane + bo;
+        }
+        load_stage<BN, P>(slot, a, g.w_dw, b, g.dup);
       } else {
         const int k0 = (s - n_dw) * PK;
-        const size_t a = (size_t)r0 * g.dup + s_up + k0;
-        const size_t b = up_col + (size_t)k0 * 128;
-        load_stage<BN>(slot, u_hi + a, u_lo + a, g.dup, op.up_hi + b,
-                       op.up_lo + b, 128);
+        const size_t ao = (size_t)r0 * g.dup + s_up + k0;
+        const size_t bo = up_col + (size_t)k0 * 128;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          a[p] = u_parts + p * plane + ao;
+          b[p] = op.up[p] + bo;
+        }
+        load_stage<BN, P>(slot, a, g.dup, b, 128);
       }
     }
     cp_async_commit();          // always: the group count stays uniform
@@ -314,16 +387,38 @@ __device__ __forceinline__ void panel_product(float (&acc)[BN / 2],
   cp_async_wait<S - 2>();       // stage 0 has landed
   fence_async_smem();
   __syncthreads();
-  for (int s = 0; s < n; ++s) {
-    wgmma_fence();
-    mma_stage<BN>(acc, base + (s % S) * Ring<BN>::STAGE_BYTES);
-    wgmma_commit();
-    wgmma_wait<1>();            // stage s-1's products are done (this warp)
+  // n >= 4 (both windows are at least 128 wide), so the loop takes no
+  // guard: a guarded loop let nvcc place the skip path's zeroed sums after
+  // the loop, inside the wgmma pipeline, and ptxas then serialized it
+  // (warning C7515)
+  int s = 0;
+#pragma unroll 1
+  do {
+    const uint32_t slot = base + (s % S) * Ring<BN, P>::STAGE_BYTES;
+    if constexpr (P == 3) {
+      float part[BN / 2];
+#pragma unroll
+      for (int q = 0; q < BN / 2; ++q) part[q] = 0.f;
+      wgmma_fence();
+      mma_stage<BN, P>(part, slot);
+      wgmma_commit();
+      wgmma_wait<0>();          // this stage's products are done
+#pragma unroll
+      for (int q = 0; q < BN / 2; ++q) {
+        asm volatile("" : "+f"(part[q])::"memory");   // read after the wait
+        acc[q] += part[q];
+      }
+    } else {
+      wgmma_fence();
+      mma_stage<BN, P>(acc, slot);
+      wgmma_commit();
+      wgmma_wait<1>();          // stage s-1's products are done (this warp)
+    }
     cp_async_wait<S - 3>();     // stage s+1 has landed (this thread's part)
     fence_async_smem();
     __syncthreads();            // ... for every warp: slot (s-1) % S is free
     fetch(s + S - 1);
-  }
+  } while (++s < n);
   wgmma_wait<0>();
   // the sums are read from here on: no use of them may move above the wait
 #pragma unroll

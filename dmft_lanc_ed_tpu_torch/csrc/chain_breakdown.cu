@@ -18,11 +18,12 @@
 //   finish:  alpha = s_cur <u_cur, y>,  co = alpha s_cur
 //   pass 1:  w = prv - co u_cur -> plane prv (not in nop1), partials |w|^2
 //   finish:  beta = |w|, coup = beta s_cur, s_cur = 1/beta (0 at breakdown)
-// As in bs_chain.cu, every step is four launches on one stream, the
-// cross-block sums are f64 partials reduced in a fixed order by one-block
-// finish kernels (no float atomics) and the scalar state is a small f64
-// device buffer. The JAX kernel carries its state in f32 SMEM scalars; the
-// port's plain version carries it in f64, as this kernel does.
+// Every step is four launches on one stream (the chain kernels' form before
+// their tensor-core redesign), the cross-block sums are f64 partials
+// reduced in a fixed order by one-block finish kernels (no float atomics)
+// and the scalar state is a small f64 device buffer. The JAX kernel
+// carries its state in f32 SMEM scalars; the port's plain version carries
+// it in f64, as this kernel does.
 //
 // What bounds it. A step is one H u (3 x ~1.95 GFLOP of bf16 tensor-core
 // products over the nonzero tiles at the 854k-state (6,6) sector, ~5.9 us

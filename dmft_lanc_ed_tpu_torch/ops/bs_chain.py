@@ -15,30 +15,34 @@ on the RCM-permuted padded grid:
   chains (the chain index is a grid dimension, every chain has its own
   scalar state, all chains advance in one launch per pass); replaces
   ``bs_chain.py:_gf_tridiag_kernel`` and the fixed zero-filled
-  ``GF_CHAIN_BATCH`` chunks of ``_gf_batch_call``. ``csrc/bs_chain.cu``.
+  ``GF_CHAIN_BATCH`` chunks of ``_gf_batch_call``. ``csrc/bs_chain_tc.cu``.
 
-B2 and B3 run the hop products on the tensor cores in the TPU kernels' own
-form, the three-pass split-bf16 product hi.hi + lo.hi + hi.lo with f32
-accumulation (``csrc/bs_panel_tc.cuh``: wgmma fed by a cp.async ring, two
-launches a B2 step and one a B3 step; see the notes at the top of the
-sources for what bounds them and what the design does about it). They carry
-the split's ~1.5e-5 relative error per product, the contract the TPU's
-B2/B3 have; the slabs are split once per op (``ops/bf16x3.py``) and every
-vector plane is kept as f32 plus its stored bf16 hi/lo pair. B4 runs FP32
-FMA products over the f32 slabs (~1e-7 per matvec, its contract). All
-three keep f32 vectors, f64 cross-block sums and f64 scalar state.
+All three run the hop products on the tensor cores in the TPU kernels' own
+forms, with f32 accumulation (``csrc/bs_panel_tc.cuh``: wgmma fed by a
+cp.async ring, two launches a B2/B4 step and one a B3 step; see the notes
+at the top of the sources for what bounds them and what the design does
+about it). B2 and B3 take the three-pass split-bf16 product hi.hi + lo.hi
++ hi.lo and carry the split's ~1.5e-5 relative error per product, the
+contract the TPU's B2/B3 have. B4 takes the six-pass product of a
+three-part split (hi.hi + hi.mid + mid.hi + hi.lo + lo.hi + mid.mid, the
+TPU kernel's HIGHEST dots: 24 significant bits a side) for the GF chains'
+~1e-7 per-matvec contract. The slabs are split once per op
+(``ops/bf16x3.py``) and every vector plane is kept as f32 plus its stored
+bf16 parts. All three keep f32 vectors, f64 cross-block sums and f64
+scalar state.
 
 Beside each kernel sits its plain PyTorch version
 (:func:`tridiag_chain_plain`, :func:`cheb_chain_plain`,
 :func:`gf_tridiag_batch_plain`): the same recurrence with the kernel's
-product form (:func:`hv_split` for B2/B3, the f32 ``_hv_plain`` for B4),
+product form (:func:`hv_split` for B2/B3, :func:`hv_split3` for B4),
 through the dense padded factors and the diagonal ``diag_a @ diag_b``
 rather than the slabs, so a window-clamping fault of a kernel shows as a
 mismatch. A wrapper runs the plain version only for a tensor on the CPU;
 for a CUDA tensor it launches the kernel or raises. Each wrapper counts its
 chain launches in :data:`launch_counts` and the steps they ran in
-:data:`step_counts` (a chain launch is K steps of one to four CUDA kernels
-on one stream; a kernel's time is quoted per step).
+:data:`step_counts` (a chain launch is K steps of one or two CUDA kernels
+on one stream; a kernel's time is quoted per step); B4's launches also
+record how many chains each carried (:data:`chains_per_launch`).
 """
 from __future__ import annotations
 
@@ -47,7 +51,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from .bf16x3 import hv_plain, split_bf16, split_op
+from .bf16x3 import (hv_plain, hv_plain3, split3_bf16, split3_op,
+                     split_bf16, split_op)
 from .blocksparse import (BsPaddedOp, BlockSparseSectorOp, _check_cuda_inputs,
                           _geometry, _hv_plain, _pop, from_padded, to_padded)
 
@@ -65,6 +70,8 @@ CHAIN_DEVICE_BUDGET = 2 << 30
 # (see module docstring)
 launch_counts = {"tridiag": 0, "cheb": 0, "gf_tridiag": 0}
 step_counts = {"tridiag": 0, "cheb": 0, "gf_tridiag": 0}
+# the chains each B4 launch carried, in launch order
+chains_per_launch: dict = {"gf_tridiag": []}
 # ground_state_seed calls that reached eta_target / gave up after
 # max_rounds (the latter send their sector through the full top-off)
 seed_counts = {"reached": 0, "missed": 0}
@@ -74,6 +81,8 @@ def reset_launch_counts() -> None:
     for counts in (launch_counts, step_counts, seed_counts):
         for k in counts:
             counts[k] = 0
+    for chains in chains_per_launch.values():
+        chains.clear()
 
 
 def _count(name: str, kk: int) -> None:
@@ -89,29 +98,32 @@ def _bucket_k(k: int) -> int:
                      f"{_K_BUCKETS[-1]}")
 
 
-def _chain_bytes(pop: BsPaddedOp, nchains: int = 1) -> int:
-    """Device bytes of nchains chains on the op: per chain two f32 planes
-    and their bf16 hi/lo pairs; per op the f32 slabs, their bf16 hi/lo
-    split and the diagonal factors."""
+def _chain_bytes(pop: BsPaddedOp, nchains: int = 1, parts: int = 2) -> int:
+    """Device bytes that nchains chains on the op hold in the product form
+    of `parts` bf16 parts a side (2: B2/B3, 3: B4): per chain two f32
+    planes and their parts; per op the slabs split into their parts and the
+    diagonal factors."""
     ddp, dup = pop.padded_shape
     slabs = pop.dw_f32.numel() + pop.up_f32.numel()
-    return (nchains * 2 * (4 + 2 * 2) * ddp * dup
-            + (4 + 2 * 2) * slabs
+    return (nchains * 2 * (4 + 2 * parts) * ddp * dup
+            + 2 * parts * slabs
             + 4 * (pop.diag_a.numel() + pop.diag_b.numel()))
 
 
 def chain_applicable(op) -> bool:
-    """True when one chain's vector planes (f32 and bf16 pairs), the slabs
-    (f32 and split) and the diagonal factors fit
-    :data:`CHAIN_DEVICE_BUDGET` of device memory."""
+    """True when one B2/B3 chain's vector planes (f32 and bf16 pairs), the
+    split slabs and the diagonal factors fit :data:`CHAIN_DEVICE_BUDGET` of
+    device memory."""
     return _chain_bytes(_pop(op)) <= CHAIN_DEVICE_BUDGET
 
 
 def gf_chain_applicable(op, m: int) -> bool:
-    """Gate of the GF chain path: the per-chain footprint of
-    :func:`chain_applicable`, and a chain length within the reference's
+    """Gate of the GF chain path: one B4 chain's footprint (f32 planes and
+    their three parts, the three-part slabs, the diagonal) within
+    :data:`CHAIN_DEVICE_BUDGET`, and a chain length within the reference's
     largest bucket (so both packages route the same sectors)."""
-    return m <= _K_BUCKETS[-1] and chain_applicable(op)
+    return (m <= _K_BUCKETS[-1]
+            and _chain_bytes(_pop(op), 1, parts=3) <= CHAIN_DEVICE_BUDGET)
 
 
 # --------------------------------------------------------------------------
@@ -131,21 +143,37 @@ def hv_split(pop: BsPaddedOp, u: torch.Tensor,
     return hv_plain(pop, u_hi, u_lo, u)
 
 
+def hv_split3(pop: BsPaddedOp, u: torch.Tensor,
+              parts: Optional[Tuple[torch.Tensor, ...]] = None
+              ) -> torch.Tensor:
+    """H_p u in B4's product form: the six-pass hop products of the
+    three-part split over the dense split factors, the diagonal in f32.
+    `parts`: the stored (hi, mid, lo) of u, else u is split here."""
+    return hv_plain3(pop, split3_bf16(u) if parts is None else parts, u)
+
+
+def _split_of(hv: Callable) -> Optional[Callable]:
+    """The split whose parts the planes of a chain with product `hv`
+    carry (None for a product of f32 planes, such as ``_hv_plain``)."""
+    return {hv_split: split_bf16, hv_split3: split3_bf16}.get(hv)
+
+
 def tridiag_chain_plain(pop: BsPaddedOp, v32p: torch.Tensor, kk: int,
                         hv: Callable = hv_split, out: Optional[dict] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of B2 (and, with ``hv=_hv_plain``, of B4): kk Lanczos
+    """Plain version of B2 (and, with ``hv=hv_split3``, of B4): kk Lanczos
     steps of nb chains from the normalized padded f32 starts v32p
     [nb, ddp, dup] with the product ``hv(pop, u)``; returns raw
     (alphas, betas) [nb, kk] f64 (betas[:, k] couples step k -> k+1).
-    With the split product the planes carry their stored bf16 pairs, as
-    the kernel's do; `out`, if given, receives the final ``planes`` (two
-    f32 [nb, ddp, dup]) and ``pair`` (their (hi, lo))."""
+    ``hv=_hv_plain`` gives the true-f32 chain, the yardstick of what a
+    product form costs. With a split product the planes carry their stored
+    bf16 parts, as the kernel's do; `out`, if given, receives the final
+    ``planes`` (two f32 [nb, ddp, dup]) and ``parts`` (their parts)."""
     pop = _pop(pop)
     planes = [v32p.float().clone(),
               torch.zeros_like(v32p, dtype=torch.float32)]
-    paired = hv is hv_split
-    pair = [split_bf16(p) for p in planes] if paired else None
+    split = _split_of(hv)
+    parts = [split(p) for p in planes] if split else None
     nb = v32p.shape[0]
     f64 = dict(dtype=torch.float64, device=v32p.device)
     s_cur = torch.ones(nb, **f64)
@@ -153,20 +181,20 @@ def tridiag_chain_plain(pop: BsPaddedOp, v32p: torch.Tensor, kk: int,
     alphas, betas = [], []
     for k in range(kk):
         u, q = planes[k % 2], planes[1 - k % 2]
-        hu = hv(pop, u, pair[k % 2]) if paired else hv(pop, u)
+        hu = hv(pop, u, parts[k % 2]) if split else hv(pop, u)
         y = _bcast(s_cur) * hu - _bcast(coup) * q
         alpha = s_cur * (u.double() * y.double()).sum((1, 2))
         w = y - _bcast(alpha * s_cur) * u
         beta = torch.sqrt((w.double() ** 2).sum((1, 2)))
         planes[1 - k % 2] = w
-        if paired:
-            pair[1 - k % 2] = split_bf16(w)
+        if split:
+            parts[1 - k % 2] = split(w)
         coup = beta * s_cur
         s_cur = torch.where(beta > 1e-30, 1.0 / beta, 0.0)
         alphas.append(alpha)
         betas.append(beta)
     if out is not None:
-        out.update(planes=planes, pair=pair)
+        out.update(planes=planes, parts=parts)
     return torch.stack(alphas, 1), torch.stack(betas, 1)
 
 
@@ -183,8 +211,8 @@ def cheb_chain_plain(pop: BsPaddedOp, v32p: torch.Tensor, kk: int, c: float,
     planes = [v32p.float().clone()[None],
               torch.zeros((1,) + tuple(v32p.shape), dtype=torch.float32,
                           device=v32p.device)]
-    paired = hv is hv_split
-    pair = [split_bf16(p) for p in planes] if paired else None
+    split = _split_of(hv)
+    parts = [split(p) for p in planes] if split else None
     f64 = dict(dtype=torch.float64, device=v32p.device)
     s_cur = torch.ones(1, **f64)
     s_prv = torch.zeros(1, **f64)
@@ -192,85 +220,83 @@ def cheb_chain_plain(pop: BsPaddedOp, v32p: torch.Tensor, kk: int, c: float,
     for k in range(kk):
         u, q = planes[k % 2], planes[1 - k % 2]
         fac = (inv_e if k == 0 else 2.0 * inv_e) * s_cur
-        hu = hv(pop, u, pair[k % 2]) if paired else hv(pop, u)
+        hu = hv(pop, u, parts[k % 2]) if split else hv(pop, u)
         r = _bcast(fac) * (hu - c * u) - _bcast(s_cur * s_prv) * q
         nrm = torch.sqrt((r.double() ** 2).sum((1, 2)))
         planes[1 - k % 2] = r
-        if paired:
-            pair[1 - k % 2] = split_bf16(r)
+        if split:
+            parts[1 - k % 2] = split(r)
         s_prv = s_cur
         s_cur = torch.where(nrm > 1e-30, 1.0 / nrm, 0.0)
     if out is not None:
-        out.update(planes=planes, pair=pair)
+        out.update(planes=planes, parts=parts)
     return planes[kk % 2][0], nrm[0]
 
 
-def gf_tridiag_batch_plain(pop: BsPaddedOp, v32p: torch.Tensor, kk: int
+def gf_tridiag_batch_plain(pop: BsPaddedOp, v32p: torch.Tensor, kk: int,
+                           out: Optional[dict] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of B4: the B2 recurrence over a batch with true-f32
-    products."""
-    return tridiag_chain_plain(pop, v32p, kk, hv=_hv_plain)
+    """Plain version of B4: the B2 recurrence over a batch with the
+    six-pass product of the three-part split (:func:`hv_split3`), the
+    planes carrying their stored (hi, mid, lo); `out` as in
+    :func:`tridiag_chain_plain`."""
+    return tridiag_chain_plain(pop, v32p, kk, hv=hv_split3, out=out)
 
 
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
-def _run_tridiag(pop: BsPaddedOp, v32p: torch.Tensor, kk: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch B4's FP32 FMA chain kernel on nb = v32p.shape[0] chains."""
+def _chain_buffers(pop: BsPaddedOp, vb: torch.Tensor, kk: int, parts: int):
+    """Check the inputs of tensor-core chains from the starts vb
+    [nb, ddp, dup] and allocate what they run on: (lib, planes
+    [nb, 2, ddp, dup] f32, their parts [nb, 2, parts, ddp, dup] bf16, state
+    [nb, 4] f64, partials, ticket counters [nb]). Plane 0 of each chain
+    holds its start and parts[:, 0] the start's split, each state is
+    {1, 0, 0, 0}, each counter 0. Every fill is a device operation, so a
+    call can be captured into a CUDA graph."""
     from .. import _kernels
     lib = _kernels.lib()
-    _check_cuda_inputs(pop, v32p)
-    nb = v32p.shape[0]
+    if vb.dim() != 3 or kk <= 0:
+        raise ValueError(f"chain kernel: vectors [nb, ddp, dup] and kk > 0, "
+                         f"got {tuple(vb.shape)}, kk={kk}")
+    _check_cuda_inputs(pop, vb)
+    nb = vb.shape[0]
     ddp, dup = pop.padded_shape
-    dev = v32p.device
+    dev = vb.device
     planes = torch.zeros((nb, 2, ddp, dup), dtype=torch.float32, device=dev)
-    planes[:, 0] = v32p
+    planes[:, 0].copy_(vb)
+    pv = torch.zeros((nb, 2, parts, ddp, dup), dtype=torch.bfloat16,
+                     device=dev)
+    for p, t in enumerate((split_bf16 if parts == 2 else split3_bf16)(vb)):
+        pv[:, 0, p].copy_(t)
     state = torch.zeros((nb, 4), dtype=torch.float64, device=dev)
-    state[:, 0] = 1.0
-    partials = torch.empty((nb, lib.bs_chain_nblk(ddp, dup)),
+    state[:, :1].fill_(1.0)
+    partials = torch.empty((nb, lib.bs_chain_tc_nblk(ddp, dup)),
                            dtype=torch.float64, device=dev)
-    alphas = torch.empty((nb, kk), dtype=torch.float64, device=dev)
-    betas = torch.empty((nb, kk), dtype=torch.float64, device=dev)
-    err = lib.bs_tridiag_chain(
-        pop.dw_f32.data_ptr(), pop.up_f32.data_ptr(), pop.diag_a.data_ptr(),
-        pop.diag_b.data_ptr(), planes.data_ptr(), state.data_ptr(),
-        partials.data_ptr(), alphas.data_ptr(), betas.data_ptr(), nb,
-        *_geometry(pop), kk, torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.check(err, "bs_tridiag_chain")
-    return alphas, betas
+    counter = torch.zeros(nb, dtype=torch.int32, device=dev)
+    return lib, planes, pv, state, partials, counter
 
 
-def _tc_buffers(pop: BsPaddedOp, v32p: torch.Tensor, kk: int):
-    """Check the inputs of a tensor-core chain and allocate what it runs
-    on: (lib, the split slabs' and the diagonal's pointers, planes, pair,
-    state, partials, counter). Plane 0 holds v32p and pair[0] its split,
-    the state is {1, 0, 0, 0}, the ticket counter 0. Every fill is a
-    device operation, so a call can be captured into a CUDA graph."""
-    from .. import _kernels
-    lib = _kernels.lib()
-    if v32p.dim() != 2 or kk <= 0:
-        raise ValueError(f"chain kernel: one vector [ddp, dup] and kk > 0, "
-                         f"got {tuple(v32p.shape)}, kk={kk}")
-    _check_cuda_inputs(pop, v32p)
+def _one(v32p: torch.Tensor, what: str) -> torch.Tensor:
+    """v32p [ddp, dup] as a batch of one chain."""
+    if v32p.dim() != 2:
+        raise ValueError(f"{what}: one vector [ddp, dup], got "
+                         f"{tuple(v32p.shape)}")
+    return v32p[None]
+
+
+def _split2_ptrs(pop: BsPaddedOp) -> tuple:
+    """Pointers of B2/B3's split slabs and of the diagonal factors."""
     sp = split_op(pop)
-    ddp, dup = pop.padded_shape
-    dev = v32p.device
-    planes = torch.zeros((2, ddp, dup), dtype=torch.float32, device=dev)
-    planes[0].copy_(v32p)
-    pair = torch.zeros((2, 2, ddp, dup), dtype=torch.bfloat16, device=dev)
-    hi, lo = split_bf16(v32p)
-    pair[0, 0].copy_(hi)
-    pair[0, 1].copy_(lo)
-    state = torch.zeros(4, dtype=torch.float64, device=dev)
-    state[:1].fill_(1.0)
-    partials = torch.empty(lib.bs_chain_tc_nblk(ddp, dup),
-                           dtype=torch.float64, device=dev)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    ptrs = (sp.dw_hi.data_ptr(), sp.dw_lo.data_ptr(), sp.up_hi.data_ptr(),
+    return (sp.dw_hi.data_ptr(), sp.dw_lo.data_ptr(), sp.up_hi.data_ptr(),
             sp.up_lo.data_ptr(), pop.diag_a.data_ptr(),
             pop.diag_b.data_ptr())
-    return lib, ptrs, planes, pair, state, partials, counter
+
+
+def _split3_ptrs(pop: BsPaddedOp) -> tuple:
+    """Pointers of B4's three-part slabs and of the diagonal factors."""
+    return split3_op(pop).pointers() + (pop.diag_a.data_ptr(),
+                                        pop.diag_b.data_ptr())
 
 
 def _run_tridiag_tc(pop: BsPaddedOp, v32p: torch.Tensor, kk: int
@@ -278,15 +304,15 @@ def _run_tridiag_tc(pop: BsPaddedOp, v32p: torch.Tensor, kk: int
     """Launch B2's tensor-core chain kernel on v32p [ddp, dup] -> (alphas,
     betas) [kk] f64."""
     from .. import _kernels
-    lib, ptrs, planes, pair, state, partials, counter = _tc_buffers(
-        pop, v32p, kk)
+    lib, planes, pair, state, partials, counter = _chain_buffers(
+        pop, _one(v32p, "tridiag_call"), kk, 2)
     dev = v32p.device
     alphas = torch.empty(kk, dtype=torch.float64, device=dev)
     betas = torch.empty(kk, dtype=torch.float64, device=dev)
     err = lib.bs_tridiag_chain_tc(
-        *ptrs, planes.data_ptr(), pair.data_ptr(), state.data_ptr(),
-        partials.data_ptr(), counter.data_ptr(), alphas.data_ptr(),
-        betas.data_ptr(), *_geometry(pop), kk,
+        *_split2_ptrs(pop), planes.data_ptr(), pair.data_ptr(),
+        state.data_ptr(), partials.data_ptr(), counter.data_ptr(),
+        alphas.data_ptr(), betas.data_ptr(), *_geometry(pop), kk,
         torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(err, "bs_tridiag_chain_tc")
     return alphas, betas
@@ -297,17 +323,53 @@ def _run_cheb_tc(pop: BsPaddedOp, v32p: torch.Tensor, kk: int, c: float,
     """Launch B3's tensor-core chain kernel on v32p [ddp, dup] -> (the last
     unnormalized vector f32, its norm f64 0-d)."""
     from .. import _kernels
-    lib, ptrs, planes, pair, state, partials, counter = _tc_buffers(
-        pop, v32p, kk)
+    lib, planes, pair, state, partials, counter = _chain_buffers(
+        pop, _one(v32p, "cheb_call"), kk, 2)
     dev = v32p.device
     norm = torch.empty(1, dtype=torch.float64, device=dev)
     err = lib.bs_cheb_chain_tc(
-        *ptrs, planes.data_ptr(), pair.data_ptr(), state.data_ptr(),
-        partials.data_ptr(), counter.data_ptr(), norm.data_ptr(), float(c),
-        float(inv_e), *_geometry(pop), kk,
+        *_split2_ptrs(pop), planes.data_ptr(), pair.data_ptr(),
+        state.data_ptr(), partials.data_ptr(), counter.data_ptr(),
+        norm.data_ptr(), float(c), float(inv_e), *_geometry(pop), kk,
         torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(err, "bs_cheb_chain_tc")
-    return planes[kk % 2], norm[0]
+    return planes[0, kk % 2], norm[0]
+
+
+def _run_gf_tc(pop: BsPaddedOp, vb: torch.Tensor, kk: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch B4's tensor-core chain kernel on the nb starts vb
+    [nb, ddp, dup] -> (alphas, betas) [nb, kk] f64."""
+    from .. import _kernels
+    lib, planes, parts, state, partials, counter = _chain_buffers(
+        pop, vb, kk, 3)
+    nb = vb.shape[0]
+    dev = vb.device
+    alphas = torch.empty((nb, kk), dtype=torch.float64, device=dev)
+    betas = torch.empty((nb, kk), dtype=torch.float64, device=dev)
+    err = lib.bs_gf_tridiag_chain_tc(
+        *_split3_ptrs(pop), planes.data_ptr(), parts.data_ptr(),
+        state.data_ptr(), partials.data_ptr(), counter.data_ptr(),
+        alphas.data_ptr(), betas.data_ptr(), nb, *_geometry(pop), kk,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(err, "bs_gf_tridiag_chain_tc")
+    return alphas, betas
+
+
+def _run_hv_tc(pop: BsPaddedOp, u: torch.Tensor, tile: int = 0
+               ) -> torch.Tensor:
+    """One H_p u in B4's six-pass form on the card (the product of a B4
+    step without its recurrence), at output tile width `tile` (32 or 128;
+    0: the launcher's choice for one chain) -> f32 [ddp, dup]. For tests
+    and measurements; on no solver path."""
+    from .. import _kernels
+    lib, planes, parts, _, _, _ = _chain_buffers(pop, _one(u, "hv"), 1, 3)
+    err = lib.bs_hv_tc(
+        *_split3_ptrs(pop), planes.data_ptr(), parts.data_ptr(),
+        *_geometry(pop), tile,
+        torch.cuda.current_stream(u.device).cuda_stream)
+    _kernels.check(err, "bs_hv_tc")
+    return planes[0, 1]
 
 
 def tridiag_call(op, v32p: torch.Tensor, kk: int
@@ -331,8 +393,9 @@ def gf_tridiag_call(op, v32p: torch.Tensor, kk: int
     kernel chain -> raw (alphas, betas) [nb, kk] f64."""
     pop = _pop(op)
     if v32p.is_cuda:
-        al, be = _run_tridiag(pop, v32p.contiguous(), kk)
+        al, be = _run_gf_tc(pop, v32p.contiguous(), kk)
         _count("gf_tridiag", kk)
+        chains_per_launch["gf_tridiag"].append(int(v32p.shape[0]))
         return al, be
     if v32p.device.type == "cpu":
         return gf_tridiag_batch_plain(pop, v32p, kk)
@@ -490,8 +553,9 @@ def gf_tridiag_batch(op: BlockSparseSectorOp, v_batch, m: int
     pop = op.pop
     v_batch = torch.as_tensor(v_batch, device=op.device)
     b_total = v_batch.shape[0]
-    per_chain = _chain_bytes(pop, 2) - _chain_bytes(pop, 1)
-    chunk = max(1, (CHAIN_DEVICE_BUDGET - _chain_bytes(pop, 0)) // per_chain)
+    per_chain = _chain_bytes(pop, 2, parts=3) - _chain_bytes(pop, 1, parts=3)
+    chunk = max(1, (CHAIN_DEVICE_BUDGET - _chain_bytes(pop, 0, parts=3))
+                // per_chain)
     al_all, be_all = [], []
     for i0 in range(0, b_total, chunk):
         vs = v_batch[i0:i0 + chunk].reshape(-1, op.dim_dw, op.dim_up)

@@ -12,10 +12,12 @@ rank per card; NCCL refuses two ranks on one) and skip with fewer.
 
 Tolerances: a kernel and its plain version run the same recurrence in
 f32 over the same operator with the same product form (B2/B3: three-pass
-split-bf16 products, whose bf16 x bf16 terms are exact in f32; B4: true
-f32), summed in different orders, so the first chain coefficients agree to
-~1e-6 relative; the bounds below are the B4 contract, 5e-5 * scale
-(test_bs_chain.py:126-139), and 1e-4 relative for the filtered vectors.
+split-bf16 products; B4: six passes over a three-part split; every bf16 x
+bf16 term is exact in f32), summed in different orders, so the first chain
+coefficients agree to ~1e-6 relative; the bounds below are the B4
+contract, 5e-5 * scale (test_bs_chain.py:126-139), and 1e-4 relative for
+the filtered vectors. One product of a kernel against its plain version:
+1e-6 x max|H u|.
 """
 import numpy as np
 import pytest
@@ -118,10 +120,14 @@ def test_chain_geometries_reach_every_output_tile(cuda):
         cfg = pt.read_input(None, norb=1, nbath=nbath, uloc=(2.0,))
         sec = pt.SectorTable(cfg).sector(pt.qn(*sqn))
         tiles.add(lib.bs_chain_tc_tile(bs._pad128(sec.dim_dw),
-                                       bs._pad128(sec.dim_up)))
+                                       bs._pad128(sec.dim_up), 1, 2))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     if sms == 132:
         assert tiles == {32, 64, 128}
+        # B4 (three parts) on (11, (3, 4)), 512 x 256: 64 x 32 tiles for
+        # one chain, 64 x 128 for the five of the batch test below
+        assert lib.bs_chain_tc_tile(512, 256, 1, 3) == 32
+        assert lib.bs_chain_tc_tile(512, 256, 5, 3) == 128
     else:
         assert tiles <= {32, 64, 128}
 
@@ -141,15 +147,62 @@ def test_chain_kernel_stores_the_split_pair(cuda):
     assert abs(float(nrm) - float(ref.double().norm())) <= 1e-6 * float(nrm)
 
 
+def _hv_f64(pop, u):
+    """H_p u in f64 over the f32 operator values the kernels multiply."""
+    d = pop.diag_a.double() @ pop.diag_b.double()
+    u = u.double()
+    return d * u + pop.hdw_p32.double() @ u + u @ pop.hup_p32.double()
+
+
+@pytest.mark.parametrize("tile", [32, 128])
+def test_six_pass_product_matches_plain(cuda, tile):
+    """One H u of B4's product (six passes over the three-part split) at
+    each of B4's output tile widths (a B4 ring of 64 x 64 would hold one
+    block an SM, so the launcher never takes it: B4 has no such tile)
+    against its plain version, within 1e-6 x max|H u|, and within 1e-6 x
+    max|H u| of the f64 product."""
+    op = _op(cuda, 11, (5, 4))
+    v0 = _starts(op, 1, 13)[0]
+    hu = bc._run_hv_tc(op.pop, v0, tile)
+    ref = bc.hv_split3(op.pop, v0)
+    top = float(ref.abs().max())
+    assert float((hu - ref).abs().max()) <= 1e-6 * top
+    assert float((hu.double() - _hv_f64(op.pop, v0)).abs().max()) <= \
+        1e-6 * top
+    assert bool(torch.all(hu[op.dim_dw:] == 0))          # pad stays zero
+    assert bool(torch.all(hu[:, op.dim_up:] == 0))
+
+
 @pytest.mark.parametrize("nbath,sqn", GEOMETRIES)
 def test_gf_tridiag_kernel_matches_plain(cuda, nbath, sqn):
     op = _op(cuda, nbath, sqn)
     vb = _starts(op, 3, 2)
+    bc.reset_launch_counts()
     al_k, be_k = bc.gf_tridiag_call(op, vb, 24)
+    assert bc.launch_counts["gf_tridiag"] == 1
+    assert bc.step_counts["gf_tridiag"] == 24
+    assert bc.chains_per_launch["gf_tridiag"] == [3]
     al_p, be_p = bc.gf_tridiag_batch_plain(op.pop, vb, 24)
     scale = max(1.0, float(al_p.abs().max()))
     assert float((al_k[:, :8] - al_p[:, :8]).abs().max()) < 5e-5 * scale
     assert float((be_k[:, :8] - be_p[:, :8]).abs().max()) < 5e-5 * scale
+    al_r, be_r = bc.gf_tridiag_call(op, vb, 24)          # rerun: same bits
+    assert torch.equal(al_k, al_r) and torch.equal(be_k, be_r)
+
+
+# (11, (3, 4)) pads to 512 x 256: one chain takes 64 x 32 tiles, five take
+# 64 x 128 (320 tiles of 64 x 32 exceed two blocks an SM on 132 SMs)
+@pytest.mark.parametrize("nbath,sqn,nb", [(11, (3, 4), 5), (9, (5, 4), 3)])
+def test_gf_tridiag_batch_equals_each_chain_alone(cuda, nbath, sqn, nb):
+    """nb chains in one launch give each chain's bits run alone: every
+    element's products and every partial sum of <u, y> are summed in an
+    order that does not depend on the tile or on the other chains."""
+    op = _op(cuda, nbath, sqn)
+    vb = _starts(op, nb, 3)
+    al_b, be_b = bc.gf_tridiag_call(op, vb, 32)
+    for i in range(nb):
+        al_1, be_1 = bc.gf_tridiag_call(op, vb[i:i + 1].contiguous(), 32)
+        assert torch.equal(al_b[i], al_1[0]) and torch.equal(be_b[i], be_1[0])
 
 
 def test_kernel_wrappers_refuse_bad_inputs(cuda):
@@ -165,6 +218,14 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
         bc.tridiag_call(op, v0.t().contiguous().t(), 8)
     with pytest.raises(ValueError):
         bc.cheb_call(op, v0.t().contiguous().t(), 8, 0.0, 1.0)
+    with pytest.raises(ValueError):                       # B4: f32 only
+        bc.gf_tridiag_call(op, _starts(op, 2).double(), 8)
+    with pytest.raises(ValueError):                       # B4: a batch
+        bc.gf_tridiag_call(op, v0, 8)
+    with pytest.raises(ValueError):
+        bc.gf_tridiag_call(op, _starts(op, 2)[:, :, :64].contiguous(), 8)
+    with pytest.raises(ValueError):
+        bc.gf_tridiag_call(op, _starts(op, 2), 0)
     with pytest.raises(ValueError):                       # two vectors
         bc.tridiag_call(op, _starts(op, 2), 8)
     op_cpu = _op("cpu", 6, (3, 3))                       # slabs on the CPU
@@ -172,6 +233,8 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
         bc.tridiag_call(op_cpu, v0, 8)
     with pytest.raises(ValueError):
         bc.cheb_call(op_cpu, v0, 8, 0.0, 1.0)
+    with pytest.raises(ValueError):
+        bc.gf_tridiag_call(op_cpu, _starts(op, 2), 8)
     with pytest.raises(ValueError):
         bs.matvec_bs_padded(op, v0.double())
     with pytest.raises(ValueError):
