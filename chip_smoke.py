@@ -14,7 +14,8 @@ nonzero without a result line):
 0. environment: the card's name and power limit (nvidia-smi), torch/CUDA
    versions; requires CUDA; TF32 off.
 1. build the CUDA kernels from ``dmft_lanc_ed_tpu_torch/csrc`` (one nvcc
-   per source, all started together).
+   per source, all started together; each one's seconds are printed),
+   while the host ARPACK oracle of phases 2-7 runs in a thread.
 2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag, B1 the
    per-call matvec, trimmed and whole-window) against its plain PyTorch
    version at the 854k-state (6,6) sector of nbath = 11, with the
@@ -22,18 +23,21 @@ nonzero without a result line):
    B3 (tensor cores, three-pass split-bf16 products) are held against
    their split plain versions, their distance to the true-f32 plain
    version is printed, and two reruns of each must be bit-identical. B4
-   (tensor cores, six passes over a three-part split): one of its
-   products against the f64 product (max|d| / max|H u| <= 1e-6 and <= 2x
-   the FP32 FMA product's, both printed), its chains against its plain
-   version, reruns and a batch against each chain alone bit-identical, and
-   the main path's own chain, c+_up|GS> in the (7,6) target, against the
-   true-f32 plain version (G(iw) 2e-5); B4's row is timed on that chain.
-2s. the chain kernels' time per step at shapes of the main path, by CUDA
-   events around back-to-back chains: B2 and B3 at the sectors (6,6),
+   and B1 (tensor cores, six passes over a three-part split): one product
+   of each against the f64 product (max|d| / max|H u| <= 1e-6 and <= 2x
+   the FP32 product's of cuBLAS, ``_hv_plain`` with TF32 off, all
+   printed); B4's chains against its plain version, reruns and a batch
+   against each chain alone bit-identical, and the main path's own chain,
+   c+_up|GS> in the (7,6) target, against the true-f32 plain version
+   (G(iw) 2e-5); B4's row is timed on that chain.
+2s. the kernels' time per step or call at shapes of the main path: B2 and
+   B3 by CUDA events around back-to-back chains at the sectors (6,6),
    (5,4) and (3,4) of nbath = 11 (924 x 924, 792 x 495 and 220 x 495
-   states, padded to 1024 x 1024, 896 x 512 and 256 x 512); B4, 200
-   steps, one chain at the GF target (7,6) (924 x 792, padded 1024 x 896),
-   at (6,6) and at (3,4), and four chains at (6,6); each with its bound.
+   states, padded to 1024 x 1024, 896 x 512 and 256 x 512); B1a and B1b
+   at the same sectors, and B5 (one of 2 shards) where the sector shards
+   over 2 ranks ((6,6) alone), by graph replay; B4, 200 steps, by events,
+   one chain at the GF target (7,6) (924 x 792, padded 1024 x 896), at
+   (6,6) and at (3,4), and four chains at (6,6); each with its bound.
    Only the wrappers' public calls are timed, so the script run from a
    checkout of an earlier tree times that tree's kernels.
 3. the two-stage ground state of that sector on the card (chain stage 1)
@@ -59,7 +63,7 @@ nonzero without a result line):
    n = 2 shards whose halo'd rows are sliced from the whole vector: each
    shard against its plain version (y within 1e-5 x max|y|, panel sums of
    squares 1e-5 relative), the stitched shards against B1b bit for bit,
-   and the time per call of both.
+   and the time per call of both (the kernel by graph replay).
 7. two ranks sharing the card (spawned, gloo transport staged through host
    memory): (a) the dw-sharded two-stage ground state of the 854k sector
    (B5 under the f32 thick restart, then the top-off and f64 polish over
@@ -94,7 +98,8 @@ input read once and each output written once, over 3.35 TB/s (the
 published H100 SXM peaks), both counted over the nonzero 128 x 128 window
 tiles of the op (its trim runs), the tiles the product needs; B2, B3, E2
 and E3 count their split-bf16 products at the 989 TFLOP/s dense bf16
-tensor-core peak (three passes; the rest FP32), B4 its six passes there.
+tensor-core peak (three passes; the rest FP32), B1, B4 and B5 their six
+passes there.
 A chain kernel's
 ``launches`` are chain launches and its ``steps`` the steps they ran; its
 ``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
@@ -106,6 +111,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -199,16 +205,6 @@ def hop_flops(pop, dw_tiles, up_tiles):
     return 2 * 128 * 128 * (dup * dw_tiles + ddp * up_tiles)
 
 
-def panel_flops(pop, rows, dw_tiles, up_tiles):
-    """FP32 operations of one H_p u over `rows` rows of the padded grid:
-    dw_tiles / up_tiles 128 x 128 window tiles multiplied (whole or
-    trimmed windows), the separable diagonal and the panel sums."""
-    dup = pop.padded_shape[1]
-    rank = pop.diag_a.shape[1]
-    return (2 * 128 * 128 * (dup * dw_tiles + rows * up_tiles)
-            + (2 * rank + 4) * rows * dup)
-
-
 def kept_tiles(pop, panels=slice(None)):
     """(dw, up) nonzero 128 x 128 window tiles of the dw panels `panels`
     and of every up panel (the op's trim runs): the tiles an H u over
@@ -224,6 +220,21 @@ def op_bytes(pop, rows, dw_tiles, up_tiles):
     dup = pop.padded_shape[1]
     rank = pop.diag_a.shape[1]
     return 4 * (128 * 128 * (dw_tiles + up_tiles) + rows * rank + rank * dup)
+
+
+def matvec_bound(pop, rows, dw_tiles, up_tiles, vec_bytes):
+    """(least ms, bound by) of one B1 call (rows = ddp) or one B5 shard's
+    (rows = its rows): six bf16 tensor-core passes over the nonzero window
+    tiles its rows need (dw_tiles of its panels, up_tiles of every up
+    panel), the diagonal and the epilogue in FP32, and the bytes of those
+    tiles' three-part slabs (6 bytes an element), of the diagonal factors
+    and of the vectors (vec_bytes)."""
+    dup = pop.padded_shape[1]
+    rank = pop.diag_a.shape[1]
+    hop = 2 * 128 * 128 * (dup * dw_tiles + rows * up_tiles)
+    nbytes = (6 * 128 * 128 * (dw_tiles + up_tiles)
+              + 4 * (rows * rank + rank * dup) + vec_bytes)
+    return bound_tc(6 * hop, (2 * rank + 6) * rows * dup, nbytes)
 
 
 def chain_bounds(pop, m, kk):
@@ -288,8 +299,10 @@ def phase1():
     t0 = time.perf_counter()
     so = _kernels.build()
     _kernels.lib()
+    each = ", ".join(f"{k} {v:.1f} s" for k, v in sorted(
+        _kernels.build_seconds.items(), key=lambda kv: -kv[1]))
     say(f"phase 1: built {os.path.relpath(so, ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s ({each or 'cached'})")
 
 
 _SECTORS = {}
@@ -462,14 +475,14 @@ def phase2(op, e0, v_gs):
     ms_p = cuda_ms(lambda: bc.cheb_chain_plain(pop, v0, kk, c, 1.0 / e)) / kk
     rows.append(("cheb", vdiff, ms_k, ms_p, *b3))
 
-    # B4 (tensor cores, six passes over a three-part split).
-    # (a) The per-matvec contract: one product of B4's kernel against the
-    # f64 product of the same u over the same f32 operator values, beside
-    # the FP32 FMA product (B1b at scale 1, the product of bs_panel.cuh that
-    # B4 ran before) and B2/B3's three-pass product (one B3 step with
-    # c = 0, e = 1) on the same vector: max|d| / max|H u| <= 1e-6 and <= 2x
-    # the FP32 kernel's. Three-part fidelity shows as ~1e-7; two-part as
-    # ~1e-5.
+    # B4 and B1 (tensor cores, six passes over a three-part split).
+    # (a) The per-matvec contract: one product of B4's kernel and one of
+    # B1b (scale 1) against the f64 product of the same u over the same f32
+    # operator values, beside the FP32 product of cuBLAS (``_hv_plain``,
+    # dense padded f32 factors, TF32 off) and B2/B3's three-pass product
+    # (one B3 step with c = 0, e = 1) on the same vector: max|d| / max|H u|
+    # <= 1e-6 and <= 2x the FP32 product's. Three-part fidelity shows as
+    # ~1e-7; two-part as ~1e-5.
     from dmft_lanc_ed_tpu_torch.ops import blocksparse as bs
     u = start(1)[0]
     ref = hv_f64(pop, u)
@@ -478,13 +491,17 @@ def phase2(op, e0, v_gs):
     def rel(y):
         return float((y.double() - ref).abs().max()) / top
     e6 = rel(bc._run_hv_tc(pop, u))
-    e32 = rel(bs._matvec_padded(op, u, 1.0, trim=False)[0])
+    e1 = rel(bs._matvec_padded(op, u, 1.0, trim=False)[0])
+    e32 = rel(_hv_plain(pop, u))
     e3 = rel(bc._run_cheb_tc(pop, u, 1, 0.0, 1.0)[0])
-    say(f"B4 product vs f64: six-pass {e6:.3e}, FP32 FMA (B1b) {e32:.3e}, "
-        f"three-pass (B3) {e3:.3e} of max|H u| {top:.3e} (six-pass: tol "
-        f"1e-6 and <= 2x FP32 = {2 * e32:.3e})")
+    say(f"product vs f64: B4 six-pass {e6:.3e}, B1b six-pass {e1:.3e}, "
+        f"FP32 cuBLAS (_hv_plain) {e32:.3e}, three-pass (B3) {e3:.3e} of "
+        f"max|H u| {top:.3e} (six-pass: tol 1e-6 and <= 2x FP32 = "
+        f"{2 * e32:.3e})")
     if not (e6 <= 1e-6 and e6 <= 2 * e32):
         raise AssertionError("B4's product misses the per-matvec contract")
+    if not (e1 <= 1e-6 and e1 <= 2 * e32):
+        raise AssertionError("B1's product misses the per-matvec contract")
     # (b) 4 chains, m = 200 (the main path's lanc_ngfiter), against the
     # six-pass plain version: the first 8 alpha/beta within 5e-5 * scale,
     # and the continued-fraction G(iw) on 20 points within 2e-5 from each
@@ -556,11 +573,12 @@ def phase2(op, e0, v_gs):
 def phase2_b1(op, v):
     """B1, trimmed (B1a) and whole-window (B1b), against its plain version:
     y within 1e-5 * max|y| and per-panel sums of squares within 1e-5
-    relative (true-f32 products summed in other orders); trimmed ==
-    whole-window exactly (the trim skips exact-zero products only); pad
+    relative (six-pass products summed in other orders); trimmed ==
+    whole-window exactly (the trim skips exact-zero stages only); pad
     rows and columns exactly 0; chain_step's rsqrt within 1e-6 relative of
-    1 / |y|."""
+    1 / |y|. Timed by graph replay."""
     import torch
+    from dmft_lanc_ed_tpu_torch.experiments.timing import device_ms
     from dmft_lanc_ed_tpu_torch.ops import blocksparse as bs
     pop = op.pop
     scale = 0.37
@@ -593,28 +611,60 @@ def phase2_b1(op, v):
         f"rel diff {r_err:.3e} (tol 1e-6)")
     if not r_err <= 1e-6:
         raise AssertionError("chain_step's normalization is off")
-    reps = 50
-    ms_p = cuda_ms(lambda: bs.matvec_bs_padded_plain(pop, v, scale), reps)
-    ddp, dup = pop.padded_shape
-    # both forms compute the same y: one bound, from the nonzero tiles
-    tiles = kept_tiles(pop)
-    b1 = bound(panel_flops(pop, ddp, *tiles),
-               op_bytes(pop, ddp, *tiles) + 8 * ddp * dup)
+    ms_p = device_ms(lambda: bs.matvec_bs_padded_plain(pop, v, scale), 10)
     rows = []
     for name, trim in (("matvec_runs", True), ("matvec_full", False)):
-        ms_k = cuda_ms(lambda: bs._matvec_padded(op, v, scale, trim=trim),
-                       reps)
-        rows.append((name, out[name][1], ms_k, ms_p, *b1))
+        ms_k = device_ms(lambda: bs._matvec_padded(op, v, scale, trim=trim),
+                         50)
+        rows.append((name, out[name][1], ms_k, ms_p, *b1_bound(op)))
+    say("  B1 per call at each tile width (the launcher's first): "
+        + tile_times(lambda t: bs._matvec_padded(op, v, scale, tile=t),
+                     op.padded_shape[0], op.padded_shape[1]))
     return rows
 
 
+def tile_times(call, rows, dup):
+    """'64 x BN: ms' by graph replay of call(BN) for the launcher's tile
+    width of a rows x dup grid, then the other one."""
+    from dmft_lanc_ed_tpu_torch import _kernels
+    from dmft_lanc_ed_tpu_torch.experiments.timing import device_ms
+    mine = _kernels.lib().bs_matvec_tile(rows, dup)
+    return ", ".join(f"64 x {t}: {device_ms(lambda: call(t), 50):.4f} ms"
+                     for t in (mine, 160 - mine))
+
+
+def b1_bound(op):
+    """B1's bound: both forms compute the same y, from the nonzero tiles;
+    v in, y and the panel sums out."""
+    pop = op.pop
+    ddp, dup = pop.padded_shape
+    return matvec_bound(pop, ddp, *kept_tiles(pop),
+                        8 * ddp * dup + 4 * (ddp // 128))
+
+
+def b5_bound(op, sh):
+    """A B5 shard's bound: its own panels' nonzero dw tiles and every up
+    panel's; v_loc and v_ext in, y and the panel sums out."""
+    pop = op.pop
+    dup = pop.padded_shape[1]
+    tiles = kept_tiles(pop, slice(sh.rank * sh.local // 128,
+                                  (sh.rank + 1) * sh.local // 128))
+    return matvec_bound(pop, sh.local, *tiles,
+                        4 * (2 * sh.local + sh.ext) * dup
+                        + 4 * (sh.local // 128))
+
+
 def phase2s():
-    """The chain kernels' time per step at SHAPES and GF_SHAPES (module
-    docstring), by CUDA events around three back-to-back chains (an earlier
-    tree's B4 wrapper fills its state from the host, which a CUDA graph
-    cannot capture, and every step here takes the card longer than the
-    host takes to enqueue it)."""
+    """The kernels' time per step or call at SHAPES and GF_SHAPES (module
+    docstring). The chains by CUDA events around three back-to-back chains
+    (an earlier tree's B4 wrapper fills its state from the host, which a
+    CUDA graph cannot capture, and every step here takes the card longer
+    than the host takes to enqueue it); B1 and B5, a call of tens of us, by
+    graph replay."""
+    from dmft_lanc_ed_tpu_torch.experiments.timing import device_ms
+    from dmft_lanc_ed_tpu_torch.ops import blocksparse as bs
     from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    from dmft_lanc_ed_tpu_torch.parallel import bs_sharded as bsh
     from dmft_lanc_ed_tpu_torch.ops.blocksparse import to_padded
 
     def starts(op, n):
@@ -633,6 +683,21 @@ def phase2s():
         say(f"  shape {tuple(sqn)} padded {op.padded_shape}: B2 {ms2:.4f} ms "
             f"a step (bound {b2[0]:.4f} ms, {b2[1]}), B3 {ms3:.4f} ms a step "
             f"(bound {b3[0]:.4f} ms, {b3[1]})")
+        ms1 = [device_ms(lambda: bs._matvec_padded(op, v0, 1.0, trim=t), 50)
+               for t in (True, False)]
+        b1 = b1_bound(op)
+        if bsh.bs_shard_applicable(op, NSHARD):
+            sh = bsh.shard_bs_op(op, NSHARD, 0, DEVICE)
+            v_loc, v_ext = bsh.shard_rows(v0, sh)
+            ms5 = device_ms(lambda: bsh._local_call(sh, v_loc, v_ext), 50)
+            b5 = b5_bound(op, sh)
+            b5_text = (f"B5 {ms5:.4f} ms (one of {NSHARD} shards; bound "
+                       f"{b5[0]:.4f} ms, {b5[1]})")
+        else:
+            b5_text = f"B5 n/a (the sector does not shard over {NSHARD})"
+        say(f"  shape {tuple(sqn)} padded {op.padded_shape}: B1a "
+            f"{ms1[0]:.4f} ms, B1b {ms1[1]:.4f} ms a call (bound "
+            f"{b1[0]:.4f} ms, {b1[1]}); {b5_text}")
     m = GF_STEPS
     for sqn, nb in [(q, 1) for q in GF_SHAPES] + [((HALF, HALF), 4)]:
         op = sector_854k(sqn)[3]
@@ -804,9 +869,9 @@ def phase6(op):
     one whole vector: each shard against its plain version, the stitched
     shards against B1b (whole windows, scale 1) bit for bit."""
     import torch
+    from dmft_lanc_ed_tpu_torch.experiments.timing import device_ms
     from dmft_lanc_ed_tpu_torch.ops import blocksparse as bs
     from dmft_lanc_ed_tpu_torch.parallel import bs_sharded as bsh
-    pop = op.pop
     v = np.random.default_rng(11).standard_normal((op.dim_dw, op.dim_up))
     vp = bs.to_padded(op, v / np.linalg.norm(v))
     shards = [bsh.shard_bs_op(op, NSHARD, d, DEVICE) for d in range(NSHARD)]
@@ -839,17 +904,14 @@ def phase6(op):
     if not same:
         raise AssertionError("stitched B5 differs from B1b")
     sh, (v_loc, v_ext) = shards[0], rows[0]
-    reps = 50
-    ms_k = cuda_ms(lambda: bsh._local_call(sh, v_loc, v_ext), reps)
-    ms_p = cuda_ms(lambda: bsh._local_call_plain(sh, v_loc, v_ext), reps)
-    dup = pop.padded_shape[1]
-    # shard 0's own panels' nonzero tiles and every up panel's
-    tiles = kept_tiles(pop, slice(0, sh.local // 128))
-    b_ms, b_by = bound(panel_flops(pop, sh.local, *tiles),
-                       op_bytes(pop, sh.local, *tiles)
-                       + 4 * (2 * sh.local + sh.ext) * dup)
+    ms_k = device_ms(lambda: bsh._local_call(sh, v_loc, v_ext), 50)
+    ms_p = device_ms(lambda: bsh._local_call_plain(sh, v_loc, v_ext), 10)
+    b_ms, b_by = b5_bound(op, sh)
     say(f"  sharded_matvec per call (one shard): kernel {ms_k:.4f} ms, plain "
-        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); at each tile width "
+        f"(the launcher's first): "
+        + tile_times(lambda t: bsh._local_call(sh, v_loc, v_ext, tile=t),
+                     sh.local, sh.dup))
     return [("sharded_matvec", err, ms_k, ms_p, b_ms, b_by)]
 
 
@@ -935,7 +997,8 @@ def phase8(op, earlier):
                                       for k, t in times.items())
         + f"; plain {ms_p:.4f} ms; bound {b_e2[0]:.4f} ms ({b_e2[1]}); B1a "
         f"{prior.get('matvec_runs', float('nan')):.4f} ms, B1b "
-        f"{prior.get('matvec_full', float('nan')):.4f} ms (FP32 FMA)")
+        f"{prior.get('matvec_full', float('nan')):.4f} ms (six-pass "
+        f"wgmma)")
     rows.append(("trim_tiles", outs["untrimmed"][2], times["untrimmed"], ms_p,
                  *b_e2))
     rows.append(("trim_static_runs", outs["static_runs"][2],
@@ -1132,15 +1195,22 @@ def main():
             from dmft_lanc_ed_tpu_torch.ops import bs_chain
             say(f"_GHOST_TOL {bs_chain._GHOST_TOL} -> {args.ghost_tol}")
             bs_chain._GHOST_TOL = args.ghost_tol
-        if "1" in phases:
-            phase1()
         rows, counts, steps = [], {}, {}
         e_gs = serial = None
-        e0 = None
-        if phases & {"2", "2s", "3", "3b", "6", "7", "8"}:
+        e0 = oracle = None
+        on_854k = phases & {"2", "2s", "3", "3b", "6", "7", "8"}
+        if on_854k:
             cfg, sec, h, op = sector_854k()
             if phases & {"2", "3", "3b", "7"}:
-                e0, v_gs = host_ground_state(h, sec)
+                # the host oracle runs in a thread while nvcc builds
+                oracle = ThreadPoolExecutor(1)
+                arpack = oracle.submit(host_ground_state, h, sec)
+        if "1" in phases:
+            phase1()
+        if on_854k:
+            if oracle is not None:
+                e0, v_gs = arpack.result()
+                oracle.shutdown()
             if "2" in phases:
                 rows = phase2(op, e0, v_gs)
             if "2s" in phases:

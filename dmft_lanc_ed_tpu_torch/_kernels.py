@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources are compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` per
-source, all started together, and linked into one shared library with a
+source, all started together (:data:`build_seconds` keeps each one's
+time), and linked into one shared library with a
 plain C interface, at first use, into this package's build directory
 (``_build/``, git-ignored), and bound with ctypes: every pointer and the
 stream are ``c_void_p``, every entry point returns ``cudaGetLastError()``
@@ -18,7 +19,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Optional
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -26,6 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 _LIB: Optional[ctypes.CDLL] = None
+# seconds of each source's nvcc in the last build of this process
+build_seconds: Dict[str, float] = {}
 
 
 def _sources():
@@ -60,13 +65,20 @@ def build() -> str:
     nvcc = _nvcc()
     cus = [p for p in srcs if p.endswith(".cu")]
     objs = [f"{tmp}.{os.path.basename(p)}.o" for p in cus]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for p, o in zip(cus, objs)]
-    outs = [(p, proc.communicate()[0], proc.returncode)
-            for p, proc in zip(cus, procs)]
+
+    def compile_one(src_obj):
+        t0 = time.perf_counter()
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", src_obj[1],
+                              src_obj[0]], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        return res.stdout, res.returncode, time.perf_counter() - t0
+    with ThreadPoolExecutor(len(cus)) as pool:
+        outs = list(pool.map(compile_one, zip(cus, objs)))
+    build_seconds.clear()
+    build_seconds.update((os.path.basename(p), sec)
+                         for p, (_, _, sec) in zip(cus, outs))
     failed = [f"{os.path.basename(p)} ({rc}):\n{out}"
-              for p, out, rc in outs if rc != 0]
+              for p, (out, rc, _) in zip(cus, outs) if rc != 0]
     if not failed:
         res = subprocess.run([nvcc, "-shared", "-o", f"{tmp}.tmp", *objs],
                              capture_output=True, text=True)
@@ -103,12 +115,16 @@ def lib() -> ctypes.CDLL:
         cdll.bs_gf_tridiag_chain_tc.argtypes = [vp] * 15 + [i32] * 9 + [vp]
         cdll.bs_hv_tc.restype = i32
         cdll.bs_hv_tc.argtypes = [vp] * 10 + [i32] * 8 + [vp]
+        # B1 and B5 (csrc/bs_matvec.cu): the split and the product
         cdll.bs_matvec_nblk.restype = i32
         cdll.bs_matvec_nblk.argtypes = [i32, i32]
+        cdll.bs_matvec_tile.restype = i32
+        cdll.bs_matvec_tile.argtypes = [i32, i32]
+        cdll.bs_split3.restype = i32
+        cdll.bs_split3.argtypes = [vp, vp, ctypes.c_long, vp]
         cdll.bs_matvec.restype = i32
-        cdll.bs_matvec.argtypes = [vp] * 13 + [i32] * 7 + [vp]
-        cdll.bs_sharded_matvec.restype = i32
-        cdll.bs_sharded_matvec.argtypes = [vp] * 15 + [i32] * 8 + [vp]
+        cdll.bs_matvec.argtypes = [vp] * 13 + [f32] + [vp] * 7 + [i32] * 9 \
+            + [vp]
         # the experiment probes' kernels (experiments/)
         cdll.chain_probe.restype = i32
         cdll.chain_probe.argtypes = [vp] * 6 + [i32] * 2 + [vp]

@@ -306,26 +306,8 @@ tc_pass1(const ChainArgs a, double* __restrict__ betas, int cur, int k) {
   }
 }
 
-// the output tile's width for nb chains on a ddp x dup grid on a card of
-// `sms` SMs (see the top of the file); B4 (P = 3) takes 32 or 128
-template <int P>
-int pick_bn(int ddp, int dup, int nb, int sms) {
-  const long rows = (long)(ddp / PM) * nb;
-  if (rows * (dup / 32) <= (long)Ring<32, P>::BLOCKS * sms) return 32;
-  if (P == 2 && rows * (dup / 64) <= (long)Ring<64, P>::BLOCKS * sms)
-    return 64;
-  return 128;
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess
-      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-             != cudaSuccess)
-    return 0;
-  return sms;
-}
-
+// the output tile's width for nb chains of `parts` bf16 parts on the
+// current device (pick_bn; see the top of the file), 0 if unreadable
 int tile_for(int ddp, int dup, int nb, int parts) {
   const int sms = sm_count();
   if (sms <= 0) return 0;

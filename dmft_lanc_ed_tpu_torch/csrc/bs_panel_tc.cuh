@@ -1,8 +1,10 @@
 // The split-bf16 band-sparse panel product of the chain kernels B2, B3 and
-// B4 (bs_chain_tc.cu) on Hopper's warpgroup tensor cores (wgmma, sm_90a).
+// B4 (bs_chain_tc.cu) and of the per-call matvec kernels B1 and B5
+// (bs_matvec.cu) on Hopper's warpgroup tensor cores (wgmma, sm_90a).
 //
 // Replaces the panel applies of the TPU's Pallas chain kernels
-// (dmft_lanc_ed_tpu/ops/bs_chain.py), in the product form each has. With
+// (dmft_lanc_ed_tpu/ops/bs_chain.py), in the product form each has, and
+// carries B1/B5 at FP32 grade in B4's form. With
 // P = 2 bf16 parts a side (B2 and B3: `_hv_panel`, walked by _tridiag_kernel
 // and _cheb_kernel), the three-pass product of blocksparse.py _dot3,
 //   x a ~ x_hi a_hi + x_lo a_hi + x_hi a_lo      (f32 accumulation),
@@ -12,7 +14,8 @@
 // passes over a three-part split), the six-pass product
 //   x a ~ hi.hi + hi.mid + mid.hi + hi.lo + lo.hi + mid.mid,
 // mid = bf16(x - hi), lo = bf16(x - hi - mid): 24 significant bits a side,
-// f32's own, for the GF chains' ~1e-7 per-matvec contract. Every split is
+// f32's own, for the GF chains' ~1e-7 per-matvec contract and B1/B5's f32
+// products. Every split is
 // round to nearest even, in f32 arithmetic, per 128-tile of the dw and up
 // windows with the JAX package's window clamps (bs_panel.cuh).
 //
@@ -25,11 +28,15 @@
 // - Both operands of every stage are plain bf16 tiles in global memory. The
 //   slabs are split once per op, and every vector plane is stored as f32
 //   plus its P bf16 parts, written once by the epilogue that produces the
-//   vector (nothing is split while it is staged).
+//   vector (B1/B5: by a split launch before the product; nothing is split
+//   while it is staged).
 // - A block is one warpgroup (128 threads) and owns a 64 x BN output tile,
-//   BN = 128, 64 or 32 chosen by the launcher from the grid (bs_chain_tc.cu).
+//   BN = 128, 64 or 32 chosen by the launcher from the grid (bs_chain_tc.cu,
+//   bs_matvec.cu).
 //   Its contraction is one continuous stream of 64-deep stages, the dw
-//   window's first and then the up window's, through a ring of 3-4 stages in
+//   window's first and then the up window's (the chains: the whole windows;
+//   B1/B5: the runs of 128-tiles their tables list, the zero tiles of the
+//   windows skipped), through a ring of 3-4 stages in
 //   dynamic shared memory filled by cp.async (16 B a thread). While the
 //   tensor cores run stage s, the copies of stages s+1 .. s+STAGES-2 are in
 //   flight and the wgmma group of stage s-1 retires; one __syncthreads a
@@ -325,48 +332,130 @@ struct SplitOp {
   const bf16* up[3];
 };
 
+// The stages of a block's contraction, in order: the dw window's 64-deep
+// slices, then the up window's. stage(s, k0) is called for s = 0, 1, 2, ...
+// in turn; it returns 0 past the last stage, else DW_STAGE or UP_STAGE with
+// k0 the stage's first element in its window. count() bounds the stages
+// walked: with the stages asked for so far, it covers every stage the main
+// loop reaches (the loop asks STAGES - 1 ahead).
+constexpr int DW_STAGE = 1;
+constexpr int UP_STAGE = 2;
+
+// the whole windows (B2, B3, B4): W_dw / 64 + W_up / 64 >= 4 stages
+struct WholeWindows {
+  int n_dw, n;
+  __device__ __forceinline__ WholeWindows(const Geo& g)
+      : n_dw(g.w_dw / PK), n(g.w_dw / PK + g.w_up / PK) {}
+  __device__ __forceinline__ int stage(int s, int& k0) const {
+    if (s >= n) return 0;
+    if (s < n_dw) {
+      k0 = s * PK;
+      return DW_STAGE;
+    }
+    k0 = (s - n_dw) * PK;
+    return UP_STAGE;
+  }
+  __device__ __forceinline__ int count() const { return n; }
+};
+
+// the one run of the first 128-tile of a window
+__device__ const int kFirstTile[2] = {0, 1};
+
+// Runs of 128-tiles (B1, B5): the (t0, t1) pairs of dw panel i's runs in
+// the table (dw_ptr, dw_tab), then up panel j's in (up_ptr, up_tab), each
+// run two stages a tile, ascending (ops/blocksparse.py _runs_table). A
+// block with no run at all walks the first tile of its dw window: all its
+// tiles are zero, so its two stages add exact zeros and the loop runs at
+// least once. The cursor steps through the table as the stages are asked
+// for; a run's pair is read when the cursor reaches it.
+struct Runs {
+  const int* dw;                // dw panel i's pairs
+  const int* up;                // up panel j's pairs
+  int n_dw, n;                  // dw runs; dw and up runs
+  int q;                        // the cursor's run: dw runs, then up runs
+  int k, k_end;                 // its next stage's first element, its end
+  int asked;                    // stages handed out so far
+
+  __device__ __forceinline__ Runs(const int* __restrict__ dw_ptr,
+                                  const int* __restrict__ dw_tab,
+                                  const int* __restrict__ up_ptr,
+                                  const int* __restrict__ up_tab, int i,
+                                  int j)
+      : q(0), asked(0) {
+    const int d0 = __ldg(dw_ptr + i), u0 = __ldg(up_ptr + j);
+    dw = dw_tab + 2 * d0;
+    up = up_tab + 2 * u0;
+    n_dw = __ldg(dw_ptr + i + 1) - d0;
+    n = n_dw + __ldg(up_ptr + j + 1) - u0;
+    if (n == 0) {
+      dw = kFirstTile;
+      n_dw = n = 1;
+    }
+    load();
+  }
+  __device__ __forceinline__ void load() {
+    const int* r = q < n_dw ? dw + 2 * q : up + 2 * (q - n_dw);
+    k = __ldg(r) * 128;
+    k_end = __ldg(r + 1) * 128;
+  }
+  __device__ __forceinline__ int stage(int, int& k0) {
+    if (q >= n) return 0;
+    const int kind = q < n_dw ? DW_STAGE : UP_STAGE;
+    k0 = k;
+    k += PK;
+    ++asked;
+    if (k == k_end && ++q < n) load();
+    return kind;
+  }
+  __device__ __forceinline__ int count() const { return asked; }
+};
+
 // acc = the hop products of the 64 x BN output tile (r0, c0) of H_p u,
-// without the diagonal: the dw slab rows r0.. of panel r0/128 times the
-// window rows of u, then u's rows r0.. over the lane window times the
-// columns c0.. of up slab c0/128, over the whole windows. u_parts: the P
-// bf16 parts of the plane u [ddp, dup], `plane` elements apart. `ring`: the
-// block's dynamic shared memory. The accumulator is wgmma's: thread t
-// holds, for j < BN/8 and h < 2, acc[4j + 2h + {0,1}] = element (16 (t/32)
-// + (t%32)/4 + 8h, 8j + 2 (t%4) + {0,1}) of the tile. At P = 3 each
-// stage's products are summed by wgmma into a zeroed register tile, then
-// added to acc with FP32 adds: the tensor cores' accumulation spans one
-// 64-deep stage.
-template <int BN, int P>
-__device__ __forceinline__ void panel_product(float (&acc)[BN / 2],
-                                              uint8_t* ring, const SplitOp& op,
-                                              const bf16* __restrict__ u_parts,
-                                              size_t plane, const Geo& g,
-                                              int r0, int c0) {
+// without the diagonal, over the stages of `st`: the dw slab rows r0.. of
+// panel r0/128 times the rows of w from row w0 on (the dw window), then
+// u's rows r0.. over the lane window times the columns c0.. of up slab
+// c0/128. u_parts and w_parts: the P bf16 parts of u (the tile's own rows,
+// [ddp, dup]) and of w (the dw window's source), `plane` elements apart;
+// the single-vector kernels pass w = u. `ring`: the block's dynamic shared
+// memory. The accumulator is wgmma's: thread t holds, for j < BN/8 and
+// h < 2, acc[4j + 2h + {0,1}] = element (16 (t/32) + (t%32)/4 + 8h, 8j +
+// 2 (t%4) + {0,1}) of the tile. At P = 3 each stage's products are summed
+// by wgmma into a zeroed register tile, then added to acc with FP32 adds:
+// the tensor cores' accumulation spans one 64-deep stage, so a stage of
+// zero tiles leaves acc as it was, and every element's sum is the same
+// whatever BN is and whichever zero stages a stream skips.
+template <int BN, int P, class Stream>
+__device__ __forceinline__ void panel_stream(float (&acc)[BN / 2],
+                                             uint8_t* ring, const SplitOp& op,
+                                             const bf16* __restrict__ u_parts,
+                                             const bf16* __restrict__ w_parts,
+                                             size_t plane, const Geo& g,
+                                             int r0, int c0, int w0,
+                                             Stream& st) {
   constexpr int S = Ring<BN, P>::STAGES;
   const uint32_t base = (smem_u32(ring) + 1023u) & ~1023u;
   const int i = r0 / 128, j = c0 / 128;
-  const int w0 = dw_window_base(g, i);
   const int s_up = min(max((j - g.d_up) * 128, 0), g.dup - g.w_up);
   const size_t dw_row = ((size_t)i * 128 + (r0 % 128)) * g.w_dw;
   const size_t up_col = (size_t)j * g.w_up * 128 + (c0 % 128);
-  const int n_dw = g.w_dw / PK, n = n_dw + g.w_up / PK;
 
   auto fetch = [&](int s) {
-    if (s < n) {
+    int k0;
+    const int kind = st.stage(s, k0);
+    if (kind) {
       const uint32_t slot = base + (s % S) * Ring<BN, P>::STAGE_BYTES;
       const bf16* a[P];
       const bf16* b[P];
-      if (s < n_dw) {
-        const size_t ao = dw_row + (size_t)s * PK;
-        const size_t bo = (size_t)(w0 + s * PK) * g.dup + c0;
+      if (kind == DW_STAGE) {
+        const size_t ao = dw_row + (size_t)k0;
+        const size_t bo = (size_t)(w0 + k0) * g.dup + c0;
 #pragma unroll
         for (int p = 0; p < P; ++p) {
           a[p] = op.dw[p] + ao;
-          b[p] = u_parts + p * plane + bo;
+          b[p] = w_parts + p * plane + bo;
         }
         load_stage<BN, P>(slot, a, g.w_dw, b, g.dup);
       } else {
-        const int k0 = (s - n_dw) * PK;
         const size_t ao = (size_t)r0 * g.dup + s_up + k0;
         const size_t bo = up_col + (size_t)k0 * 128;
 #pragma unroll
@@ -387,10 +476,9 @@ __device__ __forceinline__ void panel_product(float (&acc)[BN / 2],
   cp_async_wait<S - 2>();       // stage 0 has landed
   fence_async_smem();
   __syncthreads();
-  // n >= 4 (both windows are at least 128 wide), so the loop takes no
-  // guard: a guarded loop let nvcc place the skip path's zeroed sums after
-  // the loop, inside the wgmma pipeline, and ptxas then serialized it
-  // (warning C7515)
+  // every stream has a stage 0, so the loop takes no guard: a guarded loop
+  // let nvcc place the skip path's zeroed sums after the loop, inside the
+  // wgmma pipeline, and ptxas then serialized it (warning C7515)
   int s = 0;
 #pragma unroll 1
   do {
@@ -418,11 +506,46 @@ __device__ __forceinline__ void panel_product(float (&acc)[BN / 2],
     fence_async_smem();
     __syncthreads();            // ... for every warp: slot (s-1) % S is free
     fetch(s + S - 1);
-  } while (++s < n);
+  } while (++s < st.count());
   wgmma_wait<0>();
   // the sums are read from here on: no use of them may move above the wait
 #pragma unroll
   for (int q = 0; q < BN / 2; ++q) asm volatile("" : "+f"(acc[q])::"memory");
+}
+
+// the chains' product: panel_stream over the whole windows of u, the dw
+// window at the op's clamp
+template <int BN, int P>
+__device__ __forceinline__ void panel_product(float (&acc)[BN / 2],
+                                              uint8_t* ring, const SplitOp& op,
+                                              const bf16* __restrict__ u_parts,
+                                              size_t plane, const Geo& g,
+                                              int r0, int c0) {
+  WholeWindows st(g);
+  panel_stream<BN, P>(acc, ring, op, u_parts, u_parts, plane, g, r0, c0,
+                      dw_window_base(g, r0 / 128), st);
+}
+
+// The output tile's width for nb grids of ddp x dup on a card of `sms`
+// SMs: the narrowest tile whose blocks are all resident at once, else 64 x
+// 128 (bs_chain_tc.cu says why); at P = 3 (B1, B4, B5) 32 or 128 (a ring
+// of 64 x 64 holds one block an SM, as 64 x 128 does)
+template <int P>
+int pick_bn(int ddp, int dup, int nb, int sms) {
+  const long rows = (long)(ddp / PM) * nb;
+  if (rows * (dup / 32) <= (long)Ring<32, P>::BLOCKS * sms) return 32;
+  if (P == 2 && rows * (dup / 64) <= (long)Ring<64, P>::BLOCKS * sms)
+    return 64;
+  return 128;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+             != cudaSuccess)
+    return 0;
+  return sms;
 }
 
 }  // namespace

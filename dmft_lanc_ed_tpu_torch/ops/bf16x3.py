@@ -1,6 +1,6 @@
-"""The split-bf16 products of the chain kernels B2/B3/B4 and of the
-experiment probes E2/E3: the per-op split of the slabs, and the plain
-counterparts of ``csrc/bs_panel_tc.cuh`` and ``csrc/bf16x3.cuh``.
+"""The split-bf16 products of the kernels B1-B5 and of the experiment
+probes E2/E3: the per-op split of the slabs, and the plain counterparts of
+``csrc/bs_panel_tc.cuh`` and ``csrc/bf16x3.cuh``.
 
 The JAX package reaches f32 accuracy on the TPU's matrix unit with products
 of bf16 parts. B2/B3 take the three-pass product
@@ -9,10 +9,10 @@ x_lo = bf16(x - x_hi), and x a ~ x_hi a_hi + x_lo a_hi + x_hi a_lo. B4 takes
 Mosaic's six-pass HIGHEST dot (``ops/bs_chain.py:_dotf``): x = hi + mid + lo
 with mid = bf16(x - hi), lo = bf16(x - hi - mid), and x a ~ hi.hi + hi.mid
 + mid.hi + hi.lo + lo.hi + mid.mid. The port's tensor-core kernels compute
-the same forms. The op keeps its slabs in f32 (the FP32 FMA kernels B1 and
-B5 read those); they are split here, once per op (:func:`split_op`,
+the same forms, B1 and B5 B4's six passes (f32 grade). The op keeps its
+slabs in f32; they are split here, once per op (:func:`split_op`,
 :func:`split3_op`), from ``BsPaddedOp.dw_f32`` / ``up_f32``, and stay
-constant over every chain of a sector.
+constant over every call and chain of a sector.
 
 The plain versions multiply the bf16 parts cast to f32 in f32 products
 (each product of two bf16 values is exact in f32), over the dense padded

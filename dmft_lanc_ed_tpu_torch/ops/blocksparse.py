@@ -12,21 +12,24 @@ exactly invariant and far above the physics. The per-panel runs of the
 windows' nonzero 128-tiles (:func:`_trim_runs`) are kept on the op, as
 host tuples and as small int32 device tables.
 
-The op keeps its slabs in plain f32: B1, B4 and B5 run full f32 products
-over them. The chain kernels B2/B3 run the JAX package's three-pass
-split-bf16 product on the tensor cores; their bf16 hi/lo split of the
-slabs is made from these f32 slabs once per op (``ops/bf16x3.split_op``).
+The op keeps its slabs in plain f32. The kernels split them into bf16
+parts once per op (``ops/bf16x3.split_op``, ``split3_op``): the chain
+kernels B2/B3 run the JAX package's three-pass split-bf16 product on the
+tensor cores, B1, B4 and B5 six passes over a three-part split, whose
+error is that of an f32 product.
 
 B1, hand-written CUDA in ``csrc/bs_matvec.cu``: one fused matvec
 ``y = s·((A B)∘v + H_dw,p v + v H_up,p)`` with per-128-row-panel sums of
 squares, either over the trim runs (:func:`matvec_bs_padded`,
 :func:`chain_step`; replaces ``blocksparse.py:_runs_kernel``) or over the
-whole windows (``trim=False``; replaces ``_fused_kernel``). Beside it sits
-its plain PyTorch version :func:`matvec_bs_padded_plain`, through the dense
-padded f32 factors, so a window or run fault of the kernel shows as a
-mismatch. A wrapper runs the plain version only for a tensor on the CPU;
-for a CUDA tensor it launches the kernel or raises, and counts the launch
-in :data:`launch_counts`.
+whole windows (``trim=False``; replaces ``_fused_kernel``). A call is two
+launches: the split of v into its three bf16 parts (:func:`split3_rows`),
+then the product, whose last block finishes the panel sums. Beside it sits
+its plain PyTorch version :func:`matvec_bs_padded_plain`, the same six
+passes through the dense padded f32 factors' split, so a window or run
+fault of the kernel shows as a mismatch. A wrapper runs the plain version
+only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
+raises, and counts the product launch in :data:`launch_counts`.
 
 The padded-space exact (f64) and mixed (true-f32 products, f64 diagonal)
 applies serve the Lanczos top-off and the f64 polish of the two-stage
@@ -254,12 +257,13 @@ def _pop(op) -> BsPaddedOp:
 
 def _device_bytes(dd: int, du: int) -> int:
     """Device footprint of the op built for a dd x du sector (the slab
-    windows bounded by the full padded width)."""
+    windows bounded by the full padded width), with the three bf16 parts of
+    the slabs that B1, B4 and B5 multiply."""
     ddp, dup = _pad128(dd), _pad128(du)
     return (8 * ddp * dup + 8 * dd * du            # diag_p, natural diag
             + 12 * (ddp * ddp + dup * dup)         # padded factors f64+f32
             + 12 * (dd * dd + du * du)             # natural factors f64+f32
-            + 4 * (ddp * ddp + dup * dup))         # slabs (W <= padded dim)
+            + 10 * (ddp * ddp + dup * dup))        # slabs f32 + 3 parts
 
 
 def blocksparse_applicable(h: SectorHamiltonian) -> bool:
@@ -372,7 +376,8 @@ def trim_share(pop) -> float:
 
 
 def _hv_plain(pop: BsPaddedOp, u: torch.Tensor) -> torch.Tensor:
-    """H_p u for f32 u [..., ddp, dup] through the padded f32 factors."""
+    """H_p u for f32 u [..., ddp, dup] through the padded f32 factors (true
+    f32 products: the yardstick of the split products)."""
     d = pop.diag_a @ pop.diag_b
     return d * u + pop.hdw_p32 @ u + u @ pop.hup_p32
 
@@ -385,10 +390,55 @@ def _panel_ss(y: torch.Tensor) -> torch.Tensor:
 def matvec_bs_padded_plain(pop, v: torch.Tensor, scale
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of B1: (scale * H_p v, per-panel sums of squares
-    [ntd] f32) for f32 v [ddp, dup], through the dense padded f32 factors
-    (which hold every skipped tile as exact zeros)."""
-    y = scale * _hv_plain(_pop(pop), v)
+    [ntd] f32) for f32 v [ddp, dup], with the kernel's six-pass products of
+    the three-part splits of v and of the dense padded f32 factors (which
+    hold every skipped tile as exact zeros)."""
+    from .bf16x3 import hv_plain3, split3_bf16
+    y = scale * hv_plain3(_pop(pop), split3_bf16(v), v)
     return y, _panel_ss(y)
+
+
+def split3_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split kernel: the (hi, mid, lo) bf16 parts of
+    f32 x [rows, dup] as one tensor [3, rows, dup]."""
+    from .bf16x3 import split3_bf16
+    return torch.stack(split3_bf16(x))
+
+
+def split3_rows(x: torch.Tensor) -> torch.Tensor:
+    """The split kernel (``csrc/bs_matvec.cu`` bs_split3): the (hi, mid,
+    lo) bf16 parts of the f32 rows x [rows, dup] -> [3, rows, dup], round
+    to nearest even. B1 and B5 multiply these parts of their vector. On a
+    CPU tensor, :func:`split3_rows_plain`."""
+    if x.device.type == "cpu":
+        return split3_rows_plain(x)
+    if not x.is_cuda:
+        raise ValueError(f"split3_rows: unsupported device {x.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() % 8:
+        raise ValueError("split3_rows: needs a contiguous f32 tensor of a "
+                         "multiple of 8 values")
+    from .. import _kernels
+    parts = torch.empty((3,) + tuple(x.shape), dtype=torch.bfloat16,
+                        device=x.device)
+    _kernels.check(_kernels.lib().bs_split3(
+        x.data_ptr(), parts.data_ptr(), x.numel(),
+        torch.cuda.current_stream(x.device).cuda_stream), "bs_split3")
+    return parts
+
+
+# the product launches' ticket counters, one int32 per device: 0 between
+# launches (the launch's last block resets it), so a call needs no fill.
+# Calls on one device run in stream order (the port uses one stream).
+_TICKETS: dict = {}
+
+
+def ticket(device: torch.device) -> torch.Tensor:
+    """The ticket counter of B1/B5's product launches on `device`."""
+    t = _TICKETS.get(device)
+    if t is None:
+        t = _TICKETS[device] = torch.zeros(1, dtype=torch.int32,
+                                           device=device)
+    return t
 
 
 def _check_cuda_inputs(pop: BsPaddedOp, v: torch.Tensor) -> None:
@@ -411,12 +461,14 @@ def _geometry(pop: BsPaddedOp):
             pop.d_up)
 
 
-def _matvec_padded(op, v32p: torch.Tensor, scale, trim: bool = True
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _matvec_padded(op, v32p: torch.Tensor, scale, trim: bool = True,
+                   tile: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1: (scale * H_p v, per-panel sums of squares [ntd] f32) for the
     permuted padded f32 vector v32p [ddp, dup]; `scale` is a float or a
     device scalar (no host sync). ``trim`` walks the op's nonzero-tile
-    runs (B1a), else the whole windows (B1b); the two agree bit for bit."""
+    runs (B1a), else the whole windows (B1b); the two agree bit for bit.
+    `tile`: the output tile's width on the card (32 or 128; 0 for the
+    launcher's choice); every width gives the same bits."""
     pop = _pop(op)
     if v32p.device.type == "cpu":
         return matvec_bs_padded_plain(pop, v32p, scale)
@@ -424,6 +476,7 @@ def _matvec_padded(op, v32p: torch.Tensor, scale, trim: bool = True
         raise ValueError(f"matvec_bs_padded: unsupported device "
                          f"{v32p.device}")
     from .. import _kernels
+    from .bf16x3 import split3_op
     lib = _kernels.lib()
     v = v32p.contiguous()
     _check_cuda_inputs(pop, v)
@@ -432,20 +485,25 @@ def _matvec_padded(op, v32p: torch.Tensor, scale, trim: bool = True
                          f"{tuple(v.shape)}")
     dev = v.device
     ddp, dup = pop.padded_shape
+    # a device scalar (its f32 copy) or a float the launch takes by value
+    s, s_val = None, 0.0
     if isinstance(scale, torch.Tensor):
         s = scale.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
     else:
-        s = torch.full((1,), float(scale), dtype=torch.float32, device=dev)
+        s_val = float(scale)
+    parts = split3_rows(v)
     y = torch.empty_like(v)
     ss = torch.empty(ddp // 128, dtype=torch.float32, device=dev)
     partials = torch.empty(lib.bs_matvec_nblk(ddp, dup), dtype=torch.float64,
                            device=dev)
     runs = pop.runs_trim if trim else pop.runs_full
     err = lib.bs_matvec(
-        pop.dw_f32.data_ptr(), pop.up_f32.data_ptr(), pop.diag_a.data_ptr(),
-        pop.diag_b.data_ptr(), v.data_ptr(), y.data_ptr(), s.data_ptr(),
-        partials.data_ptr(), ss.data_ptr(), *(t.data_ptr() for t in runs),
-        *_geometry(pop), torch.cuda.current_stream(dev).cuda_stream)
+        *split3_op(pop).pointers(), pop.diag_a.data_ptr(),
+        pop.diag_b.data_ptr(), v.data_ptr(), parts.data_ptr(), None,
+        y.data_ptr(), None if s is None else s.data_ptr(), s_val,
+        partials.data_ptr(), ticket(dev).data_ptr(), ss.data_ptr(),
+        *(t.data_ptr() for t in runs), ddp, ddp, *_geometry(pop)[1:], tile,
+        torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(err, "bs_matvec")
     launch_counts["matvec_runs" if trim else "matvec_full"] += 1
     return y, ss

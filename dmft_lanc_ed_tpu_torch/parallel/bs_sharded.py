@@ -19,16 +19,18 @@ Applicability: each rank must hold the window reach, ``ntd / n >= d_dw +
 1`` (:func:`bs_shard_applicable`). Elsewhere the production dispatch takes
 the sharded dense operator (:mod:`.production`).
 
-B5, hand-written CUDA in ``csrc/bs_matvec.cu`` (``bs_sharded_matvec``),
-replaces ``bs_sharded.py:_local_kernel``: one rank's rows of the
-whole-window kernel B1b, the window start of each local panel read from a
-host table (:func:`local_window_tiles`) instead of the clamp, relative to
-the halo'd rows. Bound by FP32 operations (1/n of B1b's per rank). Beside
-it, its plain PyTorch version :func:`_local_call_plain` through the dense
-padded f32 factors, cut from the op at its first call (a shard that only
-launches B5 never holds them); :func:`_local_call` runs the plain version
-only for a tensor on the CPU, launches the kernel for a CUDA tensor or
-raises, and counts launches in :data:`launch_counts`.
+B5, hand-written CUDA in ``csrc/bs_matvec.cu`` (``bs_matvec`` given a
+window table), replaces ``bs_sharded.py:_local_kernel``: one rank's rows of
+the whole-window kernel B1b, the window start of each local panel read from
+a host table (:func:`local_window_tiles`) instead of the clamp, relative to
+the halo'd rows, with B1's six-pass split-bf16 products on the tensor
+cores (1/n of B1b's operations per rank). A call is two launches, the
+split of the halo'd rows and the product. Beside it, its plain PyTorch
+version :func:`_local_call_plain`, the same six passes through the dense
+padded f32 factors' split, cut from the op at its first call (a shard that
+only launches B5 never holds them); :func:`_local_call` runs the plain
+version only for a tensor on the CPU, launches the kernel for a CUDA
+tensor or raises, and counts launches in :data:`launch_counts`.
 
 The two-stage ground state, the single-card solve's split
 (``diag._blocksparse_ground_state``) over the ranks: an f32 thick restart
@@ -48,10 +50,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.bf16x3 import dot6_plain, split3_bf16
 from ..ops.blocksparse import (BS_DEVICE_BUDGET, BlockSparseSectorOp,
                                BsPaddedOp, _aca, _band, _factor_dense,
                                _pad128, _panel_ss, _pop, _rcm_perm,
-                               _runs_table, from_padded, to_padded)
+                               _runs_table, from_padded, split3_rows,
+                               ticket, to_padded)
 from ..ops.dense import DenseSectorOp
 from ..ops.lanczos import lanczos_ground_state
 from .mesh import DwMesh, pad_to_multiple
@@ -96,8 +100,9 @@ def local_window_tiles(op, n: int) -> np.ndarray:
 @dataclass(frozen=True)
 class BsShard:
     """One rank's part of the band-sparse operator, on its device."""
-    dw: torch.Tensor          # [ntl, 128, W_dw] f32, the rank's dw slabs
-    up: torch.Tensor          # [ntu, W_up, 128] f32, all of them
+    dw: Tuple                 # 3 x [ntl, 128, W_dw] bf16, the (hi, mid, lo)
+                              # of the rank's dw slabs
+    up: Tuple                 # 3 x [ntu, W_up, 128] bf16, of all up slabs
     diag_a: torch.Tensor      # [local, R] f32, the rank's rows
     diag_b: torch.Tensor      # [R, dup] f32
     t_tiles: torch.Tensor     # [ntl] int32 window starts (local_window_tiles)
@@ -153,14 +158,19 @@ def shard_bs_op(op, n: int, rank: int, device) -> BsShard:
 
     def put(t):
         return t.to(device).contiguous()
+
+    def parts(t):
+        return tuple(put(p) for p in split3_bf16(t))
     full_dw = (((0, pop.w_dw // 128),),) * ntl
     full_up = (((0, pop.w_up // 128),),) * (dup // 128)
     return BsShard(
-        dw=put(pop.dw_f32[rank * ntl:(rank + 1) * ntl]), up=put(pop.up_f32),
+        dw=parts(pop.dw_f32[rank * ntl:(rank + 1) * ntl]),
+        up=parts(pop.up_f32),
         diag_a=put(pop.diag_a[r0:r0 + local]), diag_b=put(pop.diag_b),
         t_tiles=torch.as_tensor(t_loc, device=device),
         runs=(*_runs_table(full_dw, device), *_runs_table(full_up, device)),
-        src=pop, rank=rank, n=n, w_dw=pop.w_dw, d_dw=pop.d_dw, w_up=pop.w_up, d_up=pop.d_up)
+        src=pop, rank=rank, n=n, w_dw=pop.w_dw, d_dw=pop.d_dw,
+        w_up=pop.w_up, d_up=pop.d_up)
 
 
 def shard_rows(v_full: torch.Tensor, sh: BsShard
@@ -177,11 +187,12 @@ def shard_rows(v_full: torch.Tensor, sh: BsShard
     return v_full[r0:r0 + sh.local].contiguous(), ext
 
 
-def _plain_factors(sh: BsShard) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version's dense f32 factors on the shard's device, cut
-    from the op at the first call and kept: the rank's rows of H_dw,p
-    against its halo'd rows (zero past the ends) [local, ext], and H_up,p
-    [dup, dup]."""
+def _plain_factors(sh: BsShard) -> Dict:
+    """The plain version's dense factors on the shard's device, cut from
+    the op at the first call and kept: the rank's rows of H_dw,p against
+    its halo'd rows (zero past the ends) [local, ext] and H_up,p [dup, dup]
+    in f32 (``hdw_ext``, ``hup``), and the (hi, mid, lo) of each held as
+    f32 (``hdw3``, ``hup3``)."""
     if not sh.plain:
         pop = sh.src
         ddp = pop.padded_shape[0]
@@ -191,25 +202,33 @@ def _plain_factors(sh: BsShard) -> Tuple[torch.Tensor, torch.Tensor]:
         hdw_ext = torch.zeros((sh.local, sh.ext), dtype=torch.float32,
                               device=sh.device)
         hdw_ext[:, c0 - lo:c1 - lo] = pop.hdw_p32[r0:r0 + sh.local, c0:c1]
-        sh.plain.update(hdw_ext=hdw_ext, hup=pop.hup_p32.to(sh.device))
-    return sh.plain["hdw_ext"], sh.plain["hup"]
+        hup = pop.hup_p32.to(sh.device)
+        sh.plain.update(
+            hdw_ext=hdw_ext, hup=hup,
+            hdw3=tuple(p.float() for p in split3_bf16(hdw_ext)),
+            hup3=tuple(p.float() for p in split3_bf16(hup)))
+    return sh.plain
 
 
 def _local_call_plain(sh: BsShard, v_loc: torch.Tensor, v_ext: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of B5: (y_loc, per-local-panel sums of squares [ntl]
-    f32) = ((A_loc B) o v_loc + H_dw,p[rows] v_ext + v_loc H_up,p) through
-    the dense padded f32 factors."""
-    hdw_ext, hup = _plain_factors(sh)
-    y = (sh.diag_a @ sh.diag_b) * v_loc + hdw_ext @ v_ext + v_loc @ hup
+    f32) = ((A_loc B) o v_loc + H_dw,p[rows] v_ext + v_loc H_up,p) with
+    the kernel's six-pass products of the three-part splits of the vectors
+    and of the dense padded f32 factors."""
+    f = _plain_factors(sh)
+    y = ((sh.diag_a @ sh.diag_b) * v_loc
+         + dot6_plain(f["hdw3"], split3_bf16(v_ext))
+         + dot6_plain(split3_bf16(v_loc), f["hup3"]))
     return y, _panel_ss(y)
 
 
-def _local_call(sh: BsShard, v_loc: torch.Tensor, v_ext: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _local_call(sh: BsShard, v_loc: torch.Tensor, v_ext: torch.Tensor,
+                tile: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """B5 on one rank: (y_loc [local, dup] f32, per-local-panel sums of
     squares [ntl] f32) from the rank's rows v_loc [local, dup] and its
-    halo'd rows v_ext [local + 2 halo, dup], f32."""
+    halo'd rows v_ext [local + 2 halo, dup], f32. `tile`: the output
+    tile's width on the card (32 or 128; 0 for the launcher's choice)."""
     if v_loc.device.type == "cpu":
         return _local_call_plain(sh, v_loc, v_ext)
     if not v_loc.is_cuda:
@@ -217,12 +236,13 @@ def _local_call(sh: BsShard, v_loc: torch.Tensor, v_ext: torch.Tensor
     from .. import _kernels
     lib = _kernels.lib()
     v_loc, v_ext = v_loc.contiguous(), v_ext.contiguous()
-    tensors = (v_loc, v_ext, sh.dw, sh.up, sh.diag_a, sh.diag_b)
-    if any(t.device != v_loc.device for t in tensors + (sh.t_tiles,)):
+    f32 = (v_loc, v_ext, sh.diag_a, sh.diag_b)
+    slabs = sh.dw + sh.up
+    if any(t.device != v_loc.device
+           for t in f32 + slabs + (sh.t_tiles,)):
         raise ValueError("sharded matvec: operator and vectors on different "
                          "devices")
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           for t in tensors):
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in f32):
         raise ValueError("sharded matvec: needs contiguous f32 tensors")
     if (tuple(v_loc.shape) != (sh.local, sh.dup)
             or tuple(v_ext.shape) != (sh.ext, sh.dup)):
@@ -230,19 +250,20 @@ def _local_call(sh: BsShard, v_loc: torch.Tensor, v_ext: torch.Tensor
                          f"{tuple(v_ext.shape)} vs shard "
                          f"{(sh.local, sh.dup)}, {(sh.ext, sh.dup)}")
     dev = v_loc.device
+    parts = split3_rows(v_ext)
     y = torch.empty_like(v_loc)
     ss = torch.empty(sh.local // 128, dtype=torch.float32, device=dev)
     partials = torch.empty(lib.bs_matvec_nblk(sh.local, sh.dup),
                            dtype=torch.float64, device=dev)
-    one = torch.ones(1, dtype=torch.float32, device=dev)
-    err = lib.bs_sharded_matvec(
-        sh.dw.data_ptr(), sh.up.data_ptr(), sh.diag_a.data_ptr(),
-        sh.diag_b.data_ptr(), v_loc.data_ptr(), v_ext.data_ptr(),
-        sh.t_tiles.data_ptr(), y.data_ptr(), one.data_ptr(),
-        partials.data_ptr(), ss.data_ptr(), *(t.data_ptr() for t in sh.runs),
-        sh.local, sh.ext, sh.dup, sh.diag_a.shape[1], sh.w_dw, sh.d_dw,
-        sh.w_up, sh.d_up, torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.check(err, "bs_sharded_matvec")
+    err = lib.bs_matvec(
+        *(t.data_ptr() for t in slabs), sh.diag_a.data_ptr(),
+        sh.diag_b.data_ptr(), v_loc.data_ptr(), parts.data_ptr(),
+        sh.t_tiles.data_ptr(), y.data_ptr(), None, 1.0, partials.data_ptr(),
+        ticket(dev).data_ptr(), ss.data_ptr(),
+        *(t.data_ptr() for t in sh.runs), sh.local, sh.ext, sh.dup,
+        sh.diag_a.shape[1], sh.w_dw, sh.d_dw, sh.w_up, sh.d_up, tile,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(err, "bs_matvec (sharded)")
     launch_counts["sharded_matvec"] += 1
     return y, ss
 
@@ -293,9 +314,10 @@ def _shard_bytes(ntl: int, dup: int, w_dw: int, w_up: int, d_dw: int,
     sector, dw padded to a multiple of n)."""
     local, halo = 128 * ntl, 128 * d_dw
     rows = pad_to_multiple(dd, n) // n
-    return (4 * local * w_dw + 4 * dup * w_up          # dw, up slabs
+    return (6 * local * w_dw + 6 * dup * w_up          # dw, up slabs' parts
             + 4 * (local + dup) * 32                   # diagonal factors
             + 4 * (3 * local + 2 * halo) * dup         # v_loc, v_ext, y
+            + 6 * (local + 2 * halo) * dup             # v_ext's parts
             + 12 * (rows * pad_to_multiple(dd, n) + du * du)  # f64 + f32
             + 8 * rows * du)                           # natural diagonal
 

@@ -8,10 +8,15 @@ Tolerances, each with its origin:
 - plain B1 vs the JAX kernels: 2e-5 x max|y|, the JAX kernels' split-bf16
   contract (~1.5e-5 per matvec, blocksparse.py:12-18); per-panel sums of
   squares 1e-4 relative (the same error, squared terms);
-- plain B1 vs the f64 apply: 1e-6 x max|y| (true-f32 products);
+- plain B1 vs the f64 apply: 1e-6 x max|y|, and within 2x the error of
+  the true-f32 dense product (six passes over three-part splits: f32
+  grade, the kernel's contract);
 - runs-aware slab apply: bit-equal to the whole-window one (skipped tiles
   are exact zeros) and 1e-5 x max|y| of the dense padded apply, the slab
-  windows' bound of test_torch_bs_chain.py;
+  windows' bound of test_torch_bs_chain.py; the same in the kernel's
+  six-pass form with each 64-deep stage summed apart (a skipped stage adds
+  an exact zero to an f32 sum), and 1e-6 x max|y| of the plain B1;
+- the split: the parts torch's split gives, bit for bit;
 - per-call two-stage ground state: 1e-10 to the JAX package's same call
   and to numpy eigh (the f64 polish gate, bench.py:51).
 """
@@ -31,6 +36,7 @@ from dmft_lanc_ed_tpu.ops.matvec import apply_h
 from dmft_lanc_ed_tpu_torch.convert import hamiltonian_from_reference
 from dmft_lanc_ed_tpu_torch.diag import _blocksparse_ground_state
 from dmft_lanc_ed_tpu_torch.ops import blocksparse as pbs
+from dmft_lanc_ed_tpu_torch.ops.bf16x3 import dot6_plain, split3_bf16
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -127,6 +133,44 @@ def test_plain_matvec_matches_reference_kernels(kw, sqn, seed):
                                atol=1e-6 * ymax)
 
 
+def _hv_f64(pop, u):
+    """H_p u in f64 over the f32 operator values the kernel multiplies."""
+    d = pop.diag_a.double() @ pop.diag_b.double()
+    u = u.double()
+    return d * u + pop.hdw_p32.double() @ u + u @ pop.hup_p32.double()
+
+
+@pytest.mark.parametrize("kw,sqn,seed", SECTORS)
+def test_six_pass_plain_matvec_at_f32_grade(kw, sqn, seed):
+    """The plain B1 (six passes over the three-part splits) against the f64
+    product of the same vector over the same f32 operator values: within
+    1e-6 x max|y| and within 2x the error of the true-f32 dense product."""
+    *_, sec, _, _, op_p = _both(kw, sqn, seed)
+    v = np.random.default_rng(8).standard_normal((sec.dim_dw, sec.dim_up))
+    vp = pbs.to_padded(op_p, v)
+    ref = _hv_f64(op_p.pop, vp)
+    top = float(ref.abs().max())
+    y6, ss6 = pbs.matvec_bs_padded_plain(op_p.pop, vp, 1.0)
+    e6 = float((y6.double() - ref).abs().max())
+    e32 = float((pbs._hv_plain(op_p.pop, vp).double() - ref).abs().max())
+    assert e6 <= 1e-6 * top and e6 <= 2 * e32
+    np.testing.assert_array_equal(ss6.numpy(), pbs._panel_ss(y6).numpy())
+
+
+def test_split_plain_is_torch_split():
+    """The split kernel's plain version: the (hi, mid, lo) of
+    split3_bf16 as one [3, rows, dup] tensor, which sums back to x."""
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal((256, 128))
+                        * np.logspace(-5, 4, 128), dtype=torch.float32)
+    parts = pbs.split3_rows(x)
+    assert parts.shape == (3, 256, 128) and parts.dtype == torch.bfloat16
+    for got, want in zip(parts, split3_bf16(x)):
+        assert torch.equal(got, want)
+    back = parts.double().sum(0)
+    assert float(((back - x.double()).abs() / x.double().abs()).max()) \
+        <= 2.0 ** -24
+
+
 def test_chain_step_normalizes():
     """Mirrors test_pallas.py:85-99: y = inv_norm * H v comes with
     rsqrt(|y|^2) = 1 / |y|, and feeding it back applies H to the
@@ -211,6 +255,76 @@ def test_runs_slab_apply_equals_whole_window(sqn):
     assert np.abs(y_runs - y_exact).max() < 1e-5 * np.abs(y_exact).max()
     assert np.all(y_runs[sec.dim_dw:] == 0) and \
         np.all(y_runs[:, sec.dim_up:] == 0)
+
+
+def _stream(pop, i, j, runs):
+    """The kernel's stages of output tile (panel i, panel j): ("dw" or
+    "up", first element in the window) of every 64-deep slice of the runs
+    (csrc/bs_panel_tc.cuh Runs), or of the dw window's first tile when the
+    tile has no run at all."""
+    dw = [("dw", k) for t0, t1 in runs[0][i] for k in range(128 * t0,
+                                                             128 * t1, 64)]
+    up = [("up", k) for t0, t1 in runs[1][j] for k in range(128 * t0,
+                                                             128 * t1, 64)]
+    return dw + up or [("dw", 0), ("dw", 64)]
+
+
+def _six_pass_slab_apply(pop, u, runs):
+    """H_p u the way the B1 kernel sums it, in torch f32 on the CPU: per
+    output tile, each stage's six passes over the three-part splits of a
+    64-deep slice of the slabs and of u (dot6_plain), summed apart and
+    added to the tile's f32 sum in stream order; then the diagonal."""
+    ddp, dup = pop.padded_shape
+    dw3, up3 = split3_bf16(pop.dw_f32), split3_bf16(pop.up_f32)
+    u3 = split3_bf16(u)
+    acc = torch.zeros((ddp, dup), dtype=torch.float32)
+    for i in range(ddp // 128):
+        base = min(max(i - pop.d_dw, 0), (ddp - pop.w_dw) // 128) * 128
+        rows = slice(128 * i, 128 * i + 128)
+        for j in range(dup // 128):
+            s_up = min(max((j - pop.d_up) * 128, 0), dup - pop.w_up)
+            cols = slice(128 * j, 128 * j + 128)
+            for kind, k in _stream(pop, i, j, runs):
+                if kind == "dw":
+                    part = dot6_plain(
+                        [p[i][:, k:k + 64] for p in dw3],
+                        [p[base + k:base + k + 64, cols] for p in u3])
+                else:
+                    part = dot6_plain(
+                        [p[rows, s_up + k:s_up + k + 64] for p in u3],
+                        [p[j][k:k + 64] for p in up3])
+                acc[rows, cols] += part
+    return (pop.diag_a @ pop.diag_b) * u + acc
+
+
+@pytest.mark.parametrize("nbath,sqn", [(10, (5, 5)), (6, (3, 0)),
+                                       (6, (0, 0))])
+def test_six_pass_trimmed_apply_equals_whole_window(nbath, sqn):
+    """The kernel's six-pass form, walked over the trim runs and over the
+    whole windows as the kernel reads them from its device tables, gives
+    the same bits (each skipped stage would add an exact zero to an f32
+    sum), and agrees with the plain B1 to 1e-6 x max|y|. (10, (5, 5)):
+    trimmed windows (16.7 % of the tiles), two runs in a window; (6, (3,
+    0)): dim_dw = 1, no dw run, one up run of one tile (two stages); (6,
+    (0, 0)): no run at all (the first dw tile's two zero stages)."""
+    cfg = pt.read_input(None, norb=1, nbath=nbath, uloc=(2.0,))
+    sec = pt.SectorTable(cfg).sector(pt.qn(*sqn))
+    h = pt.build_sector_hamiltonian(cfg, sec, np.zeros((1,) * 4),
+                                    pt.init_bath(cfg))
+    pop = pbs.build_blocksparse_op(h, "cpu").pop
+    assert pbs.trim_share(pop) > 0.1
+    v = np.random.default_rng(3).standard_normal((sec.dim_dw, sec.dim_up))
+    u = torch.zeros(pop.padded_shape, dtype=torch.float32)
+    u[:sec.dim_dw, :sec.dim_up] = torch.as_tensor(v)
+
+    def tables(t):
+        return _runs_from_tables(t[0], t[1]), _runs_from_tables(t[2], t[3])
+    y_trim = _six_pass_slab_apply(pop, u, tables(pop.runs_trim))
+    y_full = _six_pass_slab_apply(pop, u, tables(pop.runs_full))
+    assert torch.equal(y_trim, y_full)
+    y_plain, _ = pbs.matvec_bs_padded_plain(pop, u, 1.0)
+    assert float((y_trim - y_plain).abs().max()) <= \
+        1e-6 * float(y_plain.abs().max())
 
 
 @pytest.mark.parametrize("nbath,sqn", [(4, ((2,), (2,))), (5, ((3,), (3,)))])

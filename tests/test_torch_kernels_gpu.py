@@ -12,12 +12,14 @@ rank per card; NCCL refuses two ranks on one) and skip with fewer.
 
 Tolerances: a kernel and its plain version run the same recurrence in
 f32 over the same operator with the same product form (B2/B3: three-pass
-split-bf16 products; B4: six passes over a three-part split; every bf16 x
-bf16 term is exact in f32), summed in different orders, so the first chain
-coefficients agree to ~1e-6 relative; the bounds below are the B4
-contract, 5e-5 * scale (test_bs_chain.py:126-139), and 1e-4 relative for
-the filtered vectors. One product of a kernel against its plain version:
-1e-6 x max|H u|.
+split-bf16 products; B1, B4, B5: six passes over a three-part split; every
+bf16 x bf16 term is exact in f32), summed in different orders, so the
+first chain coefficients agree to ~1e-6 relative; the bounds below are the
+B4 contract, 5e-5 * scale (test_bs_chain.py:126-139), and 1e-4 relative
+for the filtered vectors. One product of a kernel against its plain
+version: 1e-6 x max|H u|; B1/B5 against theirs 1e-5 x max|y|, panel sums
+1e-5 relative. Where the same products are summed in the same order
+(trimmed and whole windows, shards, tile widths, reruns) the bits agree.
 """
 import numpy as np
 import pytest
@@ -242,12 +244,20 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
 
 
 B1_GEOMETRIES = [(6, (3, 3)), (11, (6, 6))]
+# (6, (3, 0)): dim_dw = 1, so the dw panel holds one physical row and no
+# nonzero tile: every block walks two stages (one up run of one tile);
+# (6, (0, 0)): no run at all, the blocks walk one zero tile of the dw
+# window; (10, (5, 5)): windows with two runs
+B1_TRIM_GEOMETRIES = B1_GEOMETRIES + [(6, (3, 0)), (6, (0, 0)),
+                                      (10, (5, 5))]
 
 
-@pytest.mark.parametrize("nbath,sqn", B1_GEOMETRIES)
+@pytest.mark.parametrize("nbath,sqn", B1_TRIM_GEOMETRIES)
 def test_matvec_trimmed_equals_full_window(cuda, nbath, sqn):
     """B1a (trim runs) and B1b (whole windows) skip only exact-zero
-    products, so they agree bit for bit; the pad stays exactly zero."""
+    products, so they agree bit for bit, also where a block's run list is
+    shorter than the pipeline's four stages or empty; the pad stays
+    exactly zero."""
     op = _op(cuda, nbath, sqn)
     v = _starts(op, 1, 3)[0]
     before = dict(bs.launch_counts)
@@ -260,9 +270,9 @@ def test_matvec_trimmed_equals_full_window(cuda, nbath, sqn):
     assert bool(torch.all(y_t[:, op.dim_up:] == 0))
 
 
-@pytest.mark.parametrize("nbath,sqn", B1_GEOMETRIES)
+@pytest.mark.parametrize("nbath,sqn", B1_TRIM_GEOMETRIES)
 def test_matvec_kernel_matches_plain(cuda, nbath, sqn):
-    """Kernel vs plain version, both true f32 products in different
+    """Kernel vs plain version, both six-pass products in different
     orders: y to 1e-5 x max|y|, per-panel sums of squares 1e-5 relative."""
     op = _op(cuda, nbath, sqn)
     v = _starts(op, 1, 4)[0]
@@ -272,6 +282,88 @@ def test_matvec_kernel_matches_plain(cuda, nbath, sqn):
     assert ss_k.shape == ss_p.shape
     assert float(((ss_k - ss_p).abs() / ss_p.abs().clamp(min=1e-30)).max()
                  ) <= 1e-5
+
+
+def _tiles(op):
+    """The tile widths of B1 on the op: the launcher's and the other."""
+    from dmft_lanc_ed_tpu_torch import _kernels
+    mine = _kernels.lib().bs_matvec_tile(*op.padded_shape)
+    assert mine in (32, 128)
+    return mine, 160 - mine
+
+
+@pytest.mark.parametrize("nbath,sqn", B1_TRIM_GEOMETRIES)
+def test_matvec_bits_across_tiles_and_reruns(cuda, nbath, sqn):
+    """Every element's products are summed in one order whatever the tile
+    width, and the panel sums from one partial per 64 x 32 sub-tile: y and
+    ss are the same bits at 64 x 32 and 64 x 128 tiles, trimmed or not, and
+    on a rerun."""
+    op = _op(cuda, nbath, sqn)
+    v = _starts(op, 1, 12)[0]
+    mine, other = _tiles(op)
+    for trim in (True, False):
+        y, ss = bs._matvec_padded(op, v, 0.75, trim=trim)
+        for tile in (mine, other, 0):
+            y_t, ss_t = bs._matvec_padded(op, v, 0.75, trim=trim, tile=tile)
+            assert torch.equal(y_t, y) and torch.equal(ss_t, ss)
+
+
+def test_matvec_product_against_f64(cuda):
+    """One B1b product at (11, (6, 6)) against the f64 product of the same
+    u over the same f32 operator: within 1e-6 x max|H u| and within 2x the
+    error of the FP32 product of cuBLAS (TF32 off)."""
+    op = _op(cuda, 11, (6, 6))
+    v = _starts(op, 1, 14)[0]
+    ref = _hv_f64(op.pop, v)
+    top = float(ref.abs().max())
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        e32 = float((bs._hv_plain(op.pop, v).double() - ref).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    y = bs._matvec_padded(op, v, 1.0, trim=False)[0]
+    e6 = float((y.double() - ref).abs().max())
+    assert e6 <= 1e-6 * top and e6 <= 2 * e32
+
+
+def test_split_kernel_matches_plain(cuda):
+    """The split launch of B1/B5 gives torch's round-to-nearest-even split
+    bit for bit, the three parts one after the other."""
+    x = torch.as_tensor(np.random.default_rng(15).standard_normal(
+        (384, 256)) * np.logspace(-6, 3, 256), dtype=torch.float32,
+        device=cuda)
+    parts = bs.split3_rows(x)
+    assert parts.shape == (3, 384, 256) and parts.dtype == torch.bfloat16
+    assert torch.equal(parts, bs.split3_rows_plain(x))
+
+
+def test_matvec_in_a_cuda_graph(cuda):
+    """A B1 call (split, product, panel sums by the last block) and a B5
+    call capture into a CUDA graph, whose replay gives the eager bits; the
+    scale may be a device scalar."""
+    op = _op(cuda, 10, (5, 5))
+    v = _starts(op, 1, 16)[0]
+    r = torch.full((), 0.5, device=cuda)
+    sh = bsh.shard_bs_op(op, 2, 1, cuda)
+    v_loc, v_ext = bsh.shard_rows(v, sh)
+    y_e, ss_e = bs._matvec_padded(op, v, r)
+    y5_e, ss5_e = bsh._local_call(sh, v_loc, v_ext)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bs._matvec_padded(op, v, r)
+        bsh._local_call(sh, v_loc, v_ext)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g, ss_g = bs._matvec_padded(op, v, r)
+        y5_g, ss5_g = bsh._local_call(sh, v_loc, v_ext)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y_g, y_e) and torch.equal(ss_g, ss_e)
+        assert torch.equal(y5_g, y5_e) and torch.equal(ss5_g, ss5_e)
 
 
 @pytest.mark.parametrize("nbath,sqn", B1_GEOMETRIES)
@@ -293,7 +385,7 @@ B5_GEOMETRIES = [(10, (5, 5)), (11, (6, 6))]     # the sectors B5 takes at n=2
 @pytest.mark.parametrize("nbath,sqn", B5_GEOMETRIES)
 def test_sharded_matvec_matches_plain(cuda, nbath, sqn):
     """B5 on each of 2 shards vs its plain version: y to 1e-5 x max|y|,
-    panel sums of squares 1e-5 relative (true f32 products summed in other
+    panel sums of squares 1e-5 relative (six-pass products summed in other
     orders)."""
     op = _op(cuda, nbath, sqn)
     v = _starts(op, 1, 6)[0]
@@ -318,10 +410,12 @@ def test_sharded_matvec_stitched_equals_whole_window(cuda, nbath, sqn):
     op = _op(cuda, nbath, sqn)
     v = _starts(op, 1, 7)[0]
     y_b, ss_b = bs._matvec_padded(op, v, 1.0, trim=False)
-    parts = [bsh._local_call(sh, *bsh.shard_rows(v, sh))
-             for sh in (bsh.shard_bs_op(op, 2, d, cuda) for d in range(2))]
-    assert torch.equal(torch.cat([y for y, _ in parts]), y_b)
-    assert torch.equal(torch.cat([ss for _, ss in parts]), ss_b)
+    shards = [bsh.shard_bs_op(op, 2, d, cuda) for d in range(2)]
+    for tile in (0, 32, 128):      # the shard's tile, then both widths
+        parts = [bsh._local_call(sh, *bsh.shard_rows(v, sh), tile=tile)
+                 for sh in shards]
+        assert torch.equal(torch.cat([y for y, _ in parts]), y_b)
+        assert torch.equal(torch.cat([ss for _, ss in parts]), ss_b)
 
 
 def test_sharded_matvec_refuses_bad_inputs(cuda):

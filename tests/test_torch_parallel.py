@@ -15,9 +15,10 @@ Tolerances, each with its origin:
   numbers moved, added in rank order on every rank);
 - B5's plain version vs the JAX kernel ``make_sharded_bs_matvec`` (split
   bf16 products), and the stitched shards vs the port's unsharded B1
-  plain version (true-f32 products summed in other orders): y within
+  plain version (six-pass products summed in other orders): y within
   1e-5 x max|y|, the total sum of squares within 1e-5 relative, B1's
-  contract at f32 fidelity;
+  contract at f32 fidelity; each shard of B5's plain version against the
+  f64 product within 1e-6 x max|y| and 2x the true-f32 product's error;
 - window starts and shard applicability: exact;
 - the sharded band-sparse ground state (B5 stage, then the top-off over
   the sharded dense operator): |E - ARPACK| <= 1e-9, residual <= 1e-6 x
@@ -249,6 +250,30 @@ def test_b5_plain_matches_jax_sharded_kernel():
     assert np.abs(y - y_b1.numpy()).max() <= 1e-5 * ymax
     assert abs(ss - float(ss_b1.double().sum())) <= 1e-5 * ss
     assert pbsh.launch_counts["sharded_matvec"] == 0     # CPU: no kernel
+
+
+def test_b5_plain_six_pass_at_f32_grade():
+    """nbath = 10, (5,5) on 2 shards: each shard's plain B5 (six passes
+    over the three-part splits) against the f64 product of its rows over
+    the same f32 operator values, within 1e-6 x max|y| and within 2x the
+    error of the true-f32 product of the same dense factors."""
+    _, _, h = _sector_h(10, (5, 5))
+    op = pbs.build_blocksparse_op(h, "cpu")
+    vp = _padded_start(op, 10)
+    for d in range(2):
+        sh = pbsh.shard_bs_op(op, 2, d, "cpu")
+        v_loc, v_ext = pbsh.shard_rows(vp, sh)
+        y, _ = pbsh._local_call(sh, v_loc, v_ext)
+        f = pbsh._plain_factors(sh)
+        diag = sh.diag_a.double() @ sh.diag_b.double()
+        ref = (diag * v_loc.double() + f["hdw_ext"].double() @ v_ext.double()
+               + v_loc.double() @ f["hup"].double())
+        y32 = ((sh.diag_a @ sh.diag_b) * v_loc + f["hdw_ext"] @ v_ext
+               + v_loc @ f["hup"])
+        top = float(ref.abs().max())
+        e6 = float((y.double() - ref).abs().max())
+        e32 = float((y32.double() - ref).abs().max())
+        assert e6 <= 1e-6 * top and e6 <= 2 * e32
 
 
 def test_bs_sharded_ground_state_two_ranks_matches_arpack():
