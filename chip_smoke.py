@@ -14,8 +14,9 @@ nonzero without a result line):
 0. environment: the card's name and power limit (nvidia-smi), torch/CUDA
    versions; requires CUDA; TF32 off.
 1. build the CUDA kernels from ``dmft_lanc_ed_tpu_torch/csrc`` (one nvcc
-   per source, all started together; each one's seconds are printed),
-   while the host ARPACK oracle of phases 2-7 runs in a thread.
+   per source, all started together; each one's seconds and warnings are
+   printed, and ptxas's C7515, wgmma serialized, fails the phase), while
+   the host ARPACK oracle of phases 2-7 runs in a thread.
 2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag, B1 the
    per-call matvec, trimmed and whole-window) against its plain PyTorch
    version at the 854k-state (6,6) sector of nbath = 11, with the
@@ -85,10 +86,13 @@ nonzero without a result line):
    within 1e-5 x max|y|, panel sums of squares 1e-5 relative) and
    bit-identical to each other; (c) E3's five product forms, m = 96,
    each against its plain version with phase 2's B2 gate (first 16
-   alpha/beta within 1e-4 x max(1, |alpha|max)); the time per call or
-   step of every form beside B1's and B2's; then the main path of this
-   slice, the three probes' ``main()``, with their launch counts set to
-   0 just before and read just after. Times come from
+   alpha/beta within 1e-4 x max(1, |alpha|max)), tileskip bit-identical
+   to 3pass (it skips zero tiles only) and bf16pair's first 16 within that
+   gate of 3pass's; the time per call or step of every form beside B1's
+   and B2's, and the kernel launches per E2 call and E3 step; then the
+   main path of this slice, the three probes' ``main()``, with their
+   launch counts set to 0 just before and read just after (E3 must run
+   two kernel launches a step). Times come from
    ``experiments.timing.device_ms``, which holds the stream while the
    host enqueues, so they are device time without the host's.
 
@@ -98,8 +102,8 @@ input read once and each output written once, over 3.35 TB/s (the
 published H100 SXM peaks), both counted over the nonzero 128 x 128 window
 tiles of the op (its trim runs), the tiles the product needs; B2, B3, E2
 and E3 count their split-bf16 products at the 989 TFLOP/s dense bf16
-tensor-core peak (three passes; the rest FP32), B1, B4 and B5 their six
-passes there.
+tensor-core peak (three passes, E3's 1pass one over the same bytes; the
+rest FP32), B1, B4 and B5 their six passes there.
 A chain kernel's
 ``launches`` are chain launches and its ``steps`` the steps they ran; its
 ``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
@@ -303,6 +307,13 @@ def phase1():
         _kernels.build_seconds.items(), key=lambda kv: -kv[1]))
     say(f"phase 1: built {os.path.relpath(so, ROOT)} in "
         f"{time.perf_counter() - t0:.2f} s ({each or 'cached'})")
+    # an earlier tree's _kernels records no warnings
+    warned = getattr(_kernels, "build_warnings", {})
+    for src, lines in sorted(warned.items()):
+        for ln in lines:
+            say(f"  nvcc {src}: {ln}")
+    if any("C7515" in ln for lines in warned.values() for ln in lines):
+        raise AssertionError("ptxas serialized wgmma (C7515)")
 
 
 _SECTORS = {}
@@ -961,6 +972,16 @@ def phase8(op, earlier):
         f"{1e3 * b_e1[0]:.3f} us ({b_e1[1]}); B2's step (2 launches, 854k): "
         f"{prior.get('tridiag', float('nan')):.4f} ms")
 
+    # the CUDA kernels a probe's calls launched, where its launcher counts
+    # them (an earlier tree's does not: None)
+    def kernels(mod):
+        counts = getattr(mod, "kernel_launches", None)
+        return None if counts is None else sum(counts.values())
+
+    def per(n0, mod, calls):
+        n1 = kernels(mod)
+        return "n/a" if n1 is None else f"{(n1 - n0) / calls:g}"
+
     # (b) E2: the five forms against plain and against each other
     v = ta.random_start(op, 13)
     scale = 0.37
@@ -970,13 +991,15 @@ def phase8(op, earlier):
         + [("static_runs", ta.make_static_runs(op))]
     outs = {}
     for name, call in forms:
+        n0 = kernels(ta)
         y_k, ss_k = call(v, scale)
         torch.cuda.synchronize()
         err = float((y_k - y_p).abs().max())
         ss_rel = float(((ss_k.double() - ss_p.double()).abs()
                         / ss_p.double().abs().clamp(min=1e-300)).max())
         say(f"E2 {name}: max|dy| = {err:.3e} (tol {1e-5 * ymax:.3e}); max "
-            f"panel ss rel diff {ss_rel:.3e} (tol 1e-5)")
+            f"panel ss rel diff {ss_rel:.3e} (tol 1e-5); kernel launches a "
+            f"call {per(n0, ta, 1)}")
         if not (err <= 1e-5 * ymax and ss_rel <= 1e-5):
             raise AssertionError(f"E2 {name} disagrees with its plain version")
         outs[name] = (y_k, ss_k, err)
@@ -1008,27 +1031,43 @@ def phase8(op, earlier):
     m = 96
     v0 = ta.random_start(op, 17)
     vec = 4 * ddp * dup
-    e3 = {}
+    e3, coeffs = {}, {}
     for mode in cb.MODES:
         call = cb.make_variant(op, mode)
+        n0 = kernels(cb)
         al_k, be_k = call(v0, m)
+        launches = per(n0, cb, m)
         al_p, be_p = cb.chain_plain(op, v0, m, mode)
         al_k, be_k = al_k.cpu().numpy(), be_k.cpu().numpy()
         al_p, be_p = al_p.cpu().numpy(), be_p.cpu().numpy()
+        coeffs[mode] = (al_k, be_k)
         sc = max(1.0, np.abs(al_p).max())
         err = max(np.abs(al_k[:16] - al_p[:16]).max(),
                   np.abs(be_k[:16] - be_p[:16]).max())
+        # 1pass stages both parts of every tile, as 3pass does: the same
+        # bytes, a third of the tensor-core passes
         passes = 1 if mode == "1pass" else 3
-        slabs = op_bytes(pop, ddp, *tiles) // (2 if passes == 1 else 1)
         b = bound_tc(passes * hop, (2 * rank + 12) * ddp * dup,
-                     (slabs + vec) / m + 8)
+                     (op_bytes(pop, ddp, *tiles) + vec) / m + 8)
         ms = device_ms(lambda: call(v0, m), 1, 3) / m
         e3[mode] = (float(err), ms, b)
         say(f"E3 {mode} m={m}: max|d alpha,beta|[:16] = {err:.3e} (tol "
             f"{1e-4 * sc:.3e}); per step {1e3 * ms:.2f} us, bound "
-            f"{1e3 * b[0]:.2f} us ({b[1]})")
+            f"{1e3 * b[0]:.2f} us ({b[1]}); kernel launches a step "
+            f"{launches}")
         if not err <= 1e-4 * sc:
             raise AssertionError(f"E3 {mode} disagrees with its plain version")
+    al3, be3 = coeffs["3pass"]
+    skip_same = all(np.array_equal(x, y)
+                    for x, y in zip(coeffs["tileskip"], coeffs["3pass"]))
+    d_pair = max(np.abs(coeffs["bf16pair"][0][:16] - al3[:16]).max(),
+                 np.abs(coeffs["bf16pair"][1][:16] - be3[:16]).max())
+    sc3 = max(1.0, np.abs(al3).max())
+    say(f"E3 tileskip vs 3pass bit-identical: {skip_same}; bf16pair vs "
+        f"3pass max|d alpha,beta|[:16] = {d_pair:.3e} (tol "
+        f"{1e-4 * sc3:.3e})")
+    if not (skip_same and d_pair <= 1e-4 * sc3):
+        raise AssertionError("E3's tileskip or bf16pair strays from 3pass")
     ms_p = device_ms(lambda: cb.chain_plain(op, v0, m, "3pass"), 1, 2) / m
     say(f"  E3 per step: plain 3pass {ms_p:.4f} ms; B2 (wgmma, 2 launches) "
         f"{prior.get('tridiag', float('nan')):.4f} ms")
@@ -1044,10 +1083,15 @@ def phase8(op, earlier):
     cb.main(DEVICE, op=op)
     counts = {**cp.launch_counts, **ta.launch_counts, **cb.launch_counts}
     steps = {**cp.step_counts, **cb.step_counts}
+    e3_kernels = kernels(cb)
     say(f"phase 8: the probes' main() in {time.perf_counter() - t0:.1f} s; "
-        f"launches {counts}, chain steps {steps}")
+        f"launches {counts}, chain steps {steps}; E3 kernel launches "
+        f"{e3_kernels}, a step {per(0, cb, steps['chain_breakdown'])}; E2 "
+        f"kernel launches {kernels(ta)}")
     if any(c <= 0 for c in counts.values()):
         raise AssertionError(f"a probe kernel never launched: {counts}")
+    if e3_kernels is not None and e3_kernels != 2 * steps["chain_breakdown"]:
+        raise AssertionError("E3 is not two kernel launches a step")
     return rows, counts, steps
 
 

@@ -31,6 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIB: Optional[ctypes.CDLL] = None
 # seconds of each source's nvcc in the last build of this process
 build_seconds: Dict[str, float] = {}
+# the warning lines each source's nvcc printed in that build (ptxas's C7515,
+# wgmma serialized, among them)
+build_warnings: Dict[str, list] = {}
 
 
 def _sources():
@@ -77,6 +80,11 @@ def build() -> str:
     build_seconds.clear()
     build_seconds.update((os.path.basename(p), sec)
                          for p, (_, _, sec) in zip(cus, outs))
+    build_warnings.clear()
+    build_warnings.update(
+        (os.path.basename(p), [ln for ln in out.splitlines()
+                               if "warning" in ln.lower()])
+        for p, (out, _, _) in zip(cus, outs))
     failed = [f"{os.path.basename(p)} ({rc}):\n{out}"
               for p, (out, rc, _) in zip(cus, outs) if rc != 0]
     if not failed:
@@ -128,15 +136,15 @@ def lib() -> ctypes.CDLL:
         # the experiment probes' kernels (experiments/)
         cdll.chain_probe.restype = i32
         cdll.chain_probe.argtypes = [vp] * 6 + [i32] * 2 + [vp]
+        # (E2, E3: the last pointer counts the kernels a call launched)
+        ip = ctypes.POINTER(i32)
         cdll.trim_matvec_nblk.restype = i32
         cdll.trim_matvec_nblk.argtypes = [i32, i32]
         cdll.trim_matvec.restype = i32
-        cdll.trim_matvec.argtypes = [vp] * 11 + [i32] + [vp] * 4 + [i32] * 7 \
-            + [vp]
-        cdll.bd_chain_nblk.restype = i32
-        cdll.bd_chain_nblk.argtypes = [i32, i32]
+        cdll.trim_matvec.argtypes = [vp] * 13 + [i32] + [vp] * 4 + [i32] * 8 \
+            + [ip, vp]
         cdll.bd_chain.restype = i32
-        cdll.bd_chain.argtypes = [vp] * 15 + [i32] * 9 + [vp]
+        cdll.bd_chain.argtypes = [vp] * 17 + [i32] * 9 + [ip, vp]
         _LIB = cdll
     return _LIB
 

@@ -90,51 +90,6 @@ __host__ __device__ size_t partials_per_chain(const Geo& g) {
   return (size_t)(g.ddp / PM) * (g.dup / 32);
 }
 
-// Sum of Q doubles per thread over the NTHR threads of the block, each
-// written to partials[blk * Q + q], then the cross-block sum of all npart
-// partials by the last block to arrive of nblk: returns true in every
-// thread of that block, with the fixed-order total in *total.
-template <int NTHR, int Q>
-__device__ __forceinline__ bool last_block_sum(const double (&v)[Q],
-                                               double* partials,
-                                               unsigned* counter, int blk,
-                                               int nblk, int npart,
-                                               double* total) {
-  __shared__ double red[Q][NTHR];
-  __shared__ bool last;
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) red[q][t] = v[q];
-  __syncthreads();
-  for (int s = NTHR / 2; s > 0; s >>= 1) {
-    if (t < s) {
-#pragma unroll
-      for (int q = 0; q < Q; ++q) red[q][t] += red[q][t + s];
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) partials[blk * Q + q] = red[q][0];
-    __threadfence();
-    last = atomicAdd(counter, 1u) == (unsigned)(nblk - 1);
-  }
-  __syncthreads();
-  if (!last) return false;
-  __threadfence();
-  double s = 0.0;
-  for (int q = t; q < npart; q += NTHR) s += __ldcg(partials + q);
-  red[0][t] = s;
-  __syncthreads();
-  for (int h = NTHR / 2; h > 0; h >>= 1) {
-    if (t < h) red[0][t] += red[0][t + h];
-    __syncthreads();
-  }
-  *total = red[0][0];
-  if (t == 0) *counter = 0u;
-  return true;
-}
-
 struct ChainArgs {
   SplitOp op;
   const float *da, *db;         // separable diagonal [ddp, rank], [rank, dup]
@@ -186,22 +141,7 @@ tc_step(const ChainArgs a, int cur, float c, float inv_e, int k) {
   const int cb = c0 + 2 * (t & 3);
   // the separable diagonal (A B)[r, c] of those elements
   float d[BN / 2];
-#pragma unroll
-  for (int q = 0; q < BN / 2; ++q) d[q] = 0.f;
-#pragma unroll 8                // rank is a multiple of 8: loads in batches
-  for (int q = 0; q < g.rank; ++q) {
-    const float a0 = a.da[(size_t)ra * g.rank + q];
-    const float a1 = a.da[(size_t)(ra + 8) * g.rank + q];
-    const float* brow = a.db + (size_t)q * g.dup + cb;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float2 bv = *reinterpret_cast<const float2*>(brow + 8 * j);
-      d[4 * j + 0] = fmaf(a0, bv.x, d[4 * j + 0]);
-      d[4 * j + 1] = fmaf(a0, bv.y, d[4 * j + 1]);
-      d[4 * j + 2] = fmaf(a1, bv.x, d[4 * j + 2]);
-      d[4 * j + 3] = fmaf(a1, bv.y, d[4 * j + 3]);
-    }
-  }
+  tile_diag<BN>(d, a.da, a.db, g, ra, cb);
   // B4 (P = 3): one partial per 64 x 32 sub-tile (see the top of the file)
   constexpr int Q = P == 3 ? BN / 32 : 1;
   constexpr int JQ = BN / 8 / Q;

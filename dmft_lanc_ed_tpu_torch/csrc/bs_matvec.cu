@@ -75,29 +75,6 @@
 
 namespace {
 
-constexpr int SPLIT_NT = 256;   // threads of a split block, 8 values each
-
-// parts[p * n + k] = part p of x[k], p < 3 (split3: round to nearest even)
-__global__ void __launch_bounds__(SPLIT_NT)
-split3_kernel(const float* __restrict__ x, bf16* __restrict__ parts,
-              size_t n) {
-  const size_t stride = (size_t)gridDim.x * SPLIT_NT * 8;
-  for (size_t k = ((size_t)blockIdx.x * SPLIT_NT + threadIdx.x) * 8; k < n;
-       k += stride) {
-    const float4 a = *reinterpret_cast<const float4*>(x + k);
-    const float4 b = *reinterpret_cast<const float4*>(x + k + 4);
-    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-    uint4 pv[3];                // the 8 values' hi, mid, lo
-    auto* h = reinterpret_cast<__nv_bfloat162*>(pv);
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      split3(v[2 * q], v[2 * q + 1], h[q], h[4 + q], h[8 + q]);
-#pragma unroll
-    for (int p = 0; p < 3; ++p)
-      *reinterpret_cast<uint4*>(parts + p * n + k) = pv[p];
-  }
-}
-
 struct MvArgs {
   SplitOp op;                   // the (hi, mid, lo) slabs
   const float *da, *db;         // separable diagonal [rows, rank], [rank, dup]
@@ -131,84 +108,9 @@ mv_tc(const MvArgs a) {
   panel_stream<BN, 3>(acc, ring, a.op, a.u_parts, a.w_parts, a.plane, g, r0,
                       c0, w0, st);
 
-  const float s = a.scale ? *a.scale : a.scale_value;
-  // this thread's elements: rows ra and ra + 8, column pairs cb + 8 j
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int ra = r0 + 16 * warp + (lane >> 2);
-  const int cb = c0 + 2 * (t & 3);
-  // the separable diagonal (A B)[r, c] of those elements
-  float d[BN / 2];
-#pragma unroll
-  for (int q = 0; q < BN / 2; ++q) d[q] = 0.f;
-#pragma unroll 8                // rank is a multiple of 8: loads in batches
-  for (int q = 0; q < g.rank; ++q) {
-    const float a0 = a.da[(size_t)ra * g.rank + q];
-    const float a1 = a.da[(size_t)(ra + 8) * g.rank + q];
-    const float* brow = a.db + (size_t)q * g.dup + cb;
-#pragma unroll
-    for (int jj = 0; jj < BN / 8; ++jj) {
-      const float2 bv = *reinterpret_cast<const float2*>(brow + 8 * jj);
-      d[4 * jj + 0] = fmaf(a0, bv.x, d[4 * jj + 0]);
-      d[4 * jj + 1] = fmaf(a0, bv.y, d[4 * jj + 1]);
-      d[4 * jj + 2] = fmaf(a1, bv.x, d[4 * jj + 2]);
-      d[4 * jj + 3] = fmaf(a1, bv.y, d[4 * jj + 3]);
-    }
-  }
-  // y, and sum y^2 per 64 x 32 sub-tile (four column pairs of the thread)
-  constexpr int Q = BN / 32;
-  double part[Q];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) part[q] = 0.0;
-#pragma unroll
-  for (int jj = 0; jj < BN / 8; ++jj) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = 4 * jj + 2 * h;
-      const size_t off = (size_t)(ra + 8 * h) * g.dup + cb + 8 * jj;
-      const float2 uc = *reinterpret_cast<const float2*>(a.u + off);
-      float2 y;
-      y.x = s * fmaf(d[e], uc.x, acc[e]);
-      y.y = s * fmaf(d[e + 1], uc.y, acc[e + 1]);
-      part[jj / 4] += (double)y.x * (double)y.x + (double)y.y * (double)y.y;
-      *reinterpret_cast<float2*>(a.y + off) = y;
-    }
-  }
-  // each sub-tile's partial: a butterfly over the warp, then the four
-  // warps in order (the same sums whatever BN is)
-  __shared__ double red[Q][4];
-  __shared__ bool last;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    double v = part[q];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) red[q][warp] = v;
-  }
-  __syncthreads();
-  const int nsub = g.dup / 32;
-  if (t < Q) {
-    a.partials[(size_t)blockIdx.y * nsub + c0 / 32 + t] =
-        ((red[t][0] + red[t][1]) + red[t][2]) + red[t][3];
-    __threadfence();
-  }
-  __syncthreads();
-  if (t == 0)
-    last = atomicAdd(a.counter, 1u) == gridDim.x * gridDim.y - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // panel p: the 2 nsub partials of its two block rows, summed by warp
-  // p % 4 in index order
-  const int n = 2 * nsub;
-  for (int p = warp; p < g.ddp / 128; p += PNT / 32) {
-    double v = 0.0;
-    for (int q = lane; q < n; q += 32)
-      v += __ldcg(a.partials + (size_t)p * n + q);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) a.ss[p] = (float)v;
-  }
-  if (t == 0) *a.counter = 0u;
+  matvec_epilogue<BN>(acc, a.da, a.db, a.u, a.y,
+                      a.scale ? *a.scale : a.scale_value, a.partials,
+                      a.counter, a.ss, g, c0);
 }
 
 template <int BN>
@@ -240,12 +142,9 @@ int bs_matvec_tile(int rows, int dup) {
 
 // parts [3, n] bf16 = the (hi, mid, lo) of x [n] f32, n a multiple of 8
 int bs_split3(const void* x, void* parts, long n, void* stream) {
-  if (n <= 0 || n % 8 != 0) return (int)cudaErrorInvalidValue;
-  const long blocks = (n / 8 + SPLIT_NT - 1) / SPLIT_NT;
-  split3_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), SPLIT_NT, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<bf16*>(parts), (size_t)n);
-  return (int)cudaGetLastError();
+  return (int)launch_split<3>(static_cast<const float*>(x),
+                              static_cast<bf16*>(parts), n,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // One matvec over `rows` rows (B1: the whole padded grid, rows = ext = ddp,

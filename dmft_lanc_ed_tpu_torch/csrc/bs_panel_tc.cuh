@@ -1,6 +1,7 @@
 // The split-bf16 band-sparse panel product of the chain kernels B2, B3 and
-// B4 (bs_chain_tc.cu) and of the per-call matvec kernels B1 and B5
-// (bs_matvec.cu) on Hopper's warpgroup tensor cores (wgmma, sm_90a).
+// B4 (bs_chain_tc.cu), of the per-call matvec kernels B1 and B5
+// (bs_matvec.cu) and of the probes E2 (trim_ab.cu) and E3
+// (chain_breakdown.cu) on Hopper's warpgroup tensor cores (wgmma, sm_90a).
 //
 // Replaces the panel applies of the TPU's Pallas chain kernels
 // (dmft_lanc_ed_tpu/ops/bs_chain.py), in the product form each has, and
@@ -9,15 +10,17 @@
 // and _cheb_kernel), the three-pass product of blocksparse.py _dot3,
 //   x a ~ x_hi a_hi + x_lo a_hi + x_hi a_lo      (f32 accumulation),
 // x_hi = bf16(x), x_lo = bf16(x - x_hi): the split's ~1.5e-5 relative per
-// product, the TPU's B2/B3 contract. With P = 3 (B4: `_hv_panel_f32` of
-// _gf_tridiag_kernel, whose dots run at precision HIGHEST, Mosaic's six bf16
-// passes over a three-part split), the six-pass product
+// product, the TPU's B2/B3 contract and the E2/E3 probes' (E3's "1pass"
+// form issues hi.hi alone over the same stages). With P = 3 (B4:
+// `_hv_panel_f32` of _gf_tridiag_kernel, whose dots run at precision
+// HIGHEST, Mosaic's six bf16 passes over a three-part split), the six-pass
+// product
 //   x a ~ hi.hi + hi.mid + mid.hi + hi.lo + lo.hi + mid.mid,
 // mid = bf16(x - hi), lo = bf16(x - hi - mid): 24 significant bits a side,
 // f32's own, for the GF chains' ~1e-7 per-matvec contract and B1/B5's f32
 // products. Every split is
 // round to nearest even, in f32 arithmetic, per 128-tile of the dw and up
-// windows with the JAX package's window clamps (bs_panel.cuh).
+// windows with the JAX package's window clamps (Geo below).
 //
 // What bounds the product on this card and what the design does about it.
 // At the 854k-state (6,6) sector of nbath = 11 one H u is P(P+1)/2 x 2.0
@@ -36,7 +39,8 @@
 //   Its contraction is one continuous stream of 64-deep stages, the dw
 //   window's first and then the up window's (the chains: the whole windows;
 //   B1/B5: the runs of 128-tiles their tables list, the zero tiles of the
-//   windows skipped), through a ring of 3-4 stages in
+//   windows skipped; E2/E3: the tiles their forms list), through a ring of
+//   3-4 stages in
 //   dynamic shared memory filled by cp.async (16 B a thread). While the
 //   tensor cores run stage s, the copies of stages s+1 .. s+STAGES-2 are in
 //   flight and the wgmma group of stage s-1 retires; one __syncthreads a
@@ -60,12 +64,36 @@
 #pragma once
 
 #include <cuda_bf16.h>
-
-#include "bs_panel.cuh"   // Geo, geo_ok, dw_window_base
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+// The sector geometry. On the RCM-permuted sector vector padded to
+// multiples of 128, u[ddp, dup] (f32), the panel apply is
+//   H u = (A B) o u + H_dw,p u + u H_up,p
+// with the dw hops as banded row slabs dw[ntd, 128, W_dw] (panel i of rows
+// times a window of W_dw rows of u starting at tile clamp(i - d_dw, 0,
+// (ddp - W_dw)/128)) and the up hops as banded column slabs up[ntu, W_up,
+// 128] (a lane window of u starting at clamp((j - d_up) * 128, 0,
+// dup - W_up) times column panel j's slab). The window clamps are those of
+// the JAX package's blocksparse.py:579 and :597.
+struct Geo {
+  int ddp, dup, rank, w_dw, d_dw, w_up, d_up;
+};
+
+bool geo_ok(const Geo& g) {
+  return g.ddp > 0 && g.dup > 0 && g.ddp % 128 == 0 && g.dup % 128 == 0
+         && g.w_dw % 128 == 0 && g.w_up % 128 == 0 && g.w_dw > 0
+         && g.w_up > 0 && g.w_dw <= g.ddp && g.w_up <= g.dup && g.rank > 0;
+}
+
+// First row of the dw window of row panel i: the op's window clamp.
+__device__ __forceinline__ int dw_window_base(const Geo& g, int i) {
+  return min(max(i - g.d_dw, 0), (g.ddp - g.w_dw) / 128) * 128;
+}
 
 constexpr int PM = 64;        // output rows per block (wgmma's m64)
 constexpr int PK = 64;        // contraction depth per stage
@@ -291,11 +319,16 @@ __device__ __forceinline__ void load_stage(uint32_t slot,
   }
 }
 
-// the passes of one staged 64-deep step: three at P = 2 (hi.hi, lo.hi,
-// hi.lo), six at P = 3 (hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid)
-template <int BN, int P>
+// the passes of one staged 64-deep step: NP = 3 at P = 2 (hi.hi, lo.hi,
+// hi.lo), NP = 6 at P = 3 (hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid);
+// NP = 1 at P = 2 is hi.hi alone over the same staged parts (the probe E3's
+// "1pass" form: the staging of the three-pass product without two of its
+// tensor-core passes)
+template <int BN, int P, int NP = P * (P + 1) / 2>
 __device__ __forceinline__ void mma_stage(float (&acc)[BN / 2],
                                           uint32_t slot) {
+  static_assert(NP == P * (P + 1) / 2 || (P == 2 && NP == 1),
+                "the passes of a P-part product");
   const uint32_t bslot = slot + P * A_BYTES;
   // B: 8 rows of depth are one swizzle atom (1024 bytes, or 512 at BN = 32)
   constexpr uint32_t B_SBO = BN == 32 ? 512 : 1024;
@@ -310,7 +343,9 @@ __device__ __forceinline__ void mma_stage(float (&acc)[BN / 2],
       db[p] = smem_desc(bslot + p * Ring<BN, P>::B_BYTES + ks * 2 * B_SBO,
                         B_LBO, B_SBO, B_SWZ);
     }
-    if constexpr (P == 2) {
+    if constexpr (NP == 1) {
+      wgmma_bf16<BN>(acc, da[0], db[0]);
+    } else if constexpr (P == 2) {
       wgmma_bf16<BN>(acc, da[0], db[0]);
       wgmma_bf16<BN>(acc, da[1], db[0]);
       wgmma_bf16<BN>(acc, da[0], db[1]);
@@ -341,7 +376,7 @@ struct SplitOp {
 constexpr int DW_STAGE = 1;
 constexpr int UP_STAGE = 2;
 
-// the whole windows (B2, B3, B4): W_dw / 64 + W_up / 64 >= 4 stages
+// the whole windows (B2, B3, B4, E3): W_dw / 64 + W_up / 64 >= 4 stages
 struct WholeWindows {
   int n_dw, n;
   __device__ __forceinline__ WholeWindows(const Geo& g)
@@ -361,13 +396,14 @@ struct WholeWindows {
 // the one run of the first 128-tile of a window
 __device__ const int kFirstTile[2] = {0, 1};
 
-// Runs of 128-tiles (B1, B5): the (t0, t1) pairs of dw panel i's runs in
-// the table (dw_ptr, dw_tab), then up panel j's in (up_ptr, up_tab), each
-// run two stages a tile, ascending (ops/blocksparse.py _runs_table). A
-// block with no run at all walks the first tile of its dw window: all its
-// tiles are zero, so its two stages add exact zeros and the loop runs at
-// least once. The cursor steps through the table as the stages are asked
-// for; a run's pair is read when the cursor reaches it.
+// Runs of 128-tiles (B1, B5, E2b, E3's tileskip): the (t0, t1) pairs of dw
+// panel i's runs in the table (dw_ptr, dw_tab), then up panel j's in
+// (up_ptr, up_tab), each run two stages a tile, ascending
+// (ops/blocksparse.py _runs_table). A block with no run at all walks the
+// first tile of its dw window: all its tiles are zero, so its two stages
+// add exact zeros and the loop runs at least once. The cursor steps
+// through the table as the stages are asked for; a run's pair is read
+// when the cursor reaches it.
 struct Runs {
   const int* dw;                // dw panel i's pairs
   const int* up;                // up panel j's pairs
@@ -410,6 +446,52 @@ struct Runs {
   __device__ __forceinline__ int count() const { return asked; }
 };
 
+// Lists of 128-tiles (E2a): dw panel i's tiles lst_dw[i, :cnt_dw[i]], then
+// up panel j's lst_up[j, :cnt_up[j]] (window tiles, ascending; a list's row
+// holds ntw entries, a count above ntw reads ntw), two stages a tile, from
+// a cursor as Runs walks its runs; a block with no listed tile walks the
+// first tile of its dw window, as Runs does.
+struct TileList {
+  const int* dw;                // dw panel i's tiles
+  const int* up;                // up panel j's tiles
+  int n_dw, n;                  // dw tiles; dw and up tiles
+  int q;                        // the cursor's tile: dw tiles, then up tiles
+  int k, k_end;                 // its next stage's first element, its end
+  int asked;                    // stages handed out so far
+
+  __device__ __forceinline__ TileList(const int* __restrict__ cnt_dw,
+                                      const int* __restrict__ lst_dw,
+                                      int ntw_dw,
+                                      const int* __restrict__ cnt_up,
+                                      const int* __restrict__ lst_up,
+                                      int ntw_up, int i, int j)
+      : q(0), asked(0) {
+    dw = lst_dw + (size_t)i * ntw_dw;
+    up = lst_up + (size_t)j * ntw_up;
+    n_dw = min(__ldg(cnt_dw + i), ntw_dw);
+    n = n_dw + min(__ldg(cnt_up + j), ntw_up);
+    if (n == 0) {
+      dw = kFirstTile;
+      n_dw = n = 1;
+    }
+    load();
+  }
+  __device__ __forceinline__ void load() {
+    k = __ldg(q < n_dw ? dw + q : up + (q - n_dw)) * 128;
+    k_end = k + 128;
+  }
+  __device__ __forceinline__ int stage(int, int& k0) {
+    if (q >= n) return 0;
+    const int kind = q < n_dw ? DW_STAGE : UP_STAGE;
+    k0 = k;
+    k += PK;
+    ++asked;
+    if (k == k_end && ++q < n) load();
+    return kind;
+  }
+  __device__ __forceinline__ int count() const { return asked; }
+};
+
 // acc = the hop products of the 64 x BN output tile (r0, c0) of H_p u,
 // without the diagonal, over the stages of `st`: the dw slab rows r0.. of
 // panel r0/128 times the rows of w from row w0 on (the dw window), then
@@ -423,8 +505,11 @@ struct Runs {
 // by wgmma into a zeroed register tile, then added to acc with FP32 adds:
 // the tensor cores' accumulation spans one 64-deep stage, so a stage of
 // zero tiles leaves acc as it was, and every element's sum is the same
-// whatever BN is and whichever zero stages a stream skips.
-template <int BN, int P, class Stream>
+// whatever BN is and whichever zero stages a stream skips. At P = 2 wgmma
+// accumulates into acc across the stages; a stage of zero tiles adds exact
+// zeros to it (the E2 and E3 probes' forms hold that to the bit). NP: the
+// passes a stage (mma_stage).
+template <int BN, int P, int NP = P * (P + 1) / 2, class Stream>
 __device__ __forceinline__ void panel_stream(float (&acc)[BN / 2],
                                              uint8_t* ring, const SplitOp& op,
                                              const bf16* __restrict__ u_parts,
@@ -498,7 +583,7 @@ __device__ __forceinline__ void panel_stream(float (&acc)[BN / 2],
       }
     } else {
       wgmma_fence();
-      mma_stage<BN, P>(acc, slot);
+      mma_stage<BN, P, NP>(acc, slot);
       wgmma_commit();
       wgmma_wait<1>();          // stage s-1's products are done (this warp)
     }
@@ -515,15 +600,202 @@ __device__ __forceinline__ void panel_stream(float (&acc)[BN / 2],
 
 // the chains' product: panel_stream over the whole windows of u, the dw
 // window at the op's clamp
-template <int BN, int P>
+template <int BN, int P, int NP = P * (P + 1) / 2>
 __device__ __forceinline__ void panel_product(float (&acc)[BN / 2],
                                               uint8_t* ring, const SplitOp& op,
                                               const bf16* __restrict__ u_parts,
                                               size_t plane, const Geo& g,
                                               int r0, int c0) {
   WholeWindows st(g);
-  panel_stream<BN, P>(acc, ring, op, u_parts, u_parts, plane, g, r0, c0,
-                      dw_window_base(g, r0 / 128), st);
+  panel_stream<BN, P, NP>(acc, ring, op, u_parts, u_parts, plane, g, r0, c0,
+                          dw_window_base(g, r0 / 128), st);
+}
+
+// The separable diagonal (A B)[r, c] of a thread's elements of a 64 x BN
+// tile in acc's layout: rows ra and ra + 8, column pairs cb + 8 j.
+template <int BN>
+__device__ __forceinline__ void tile_diag(float (&d)[BN / 2], const float* da,
+                                          const float* db, const Geo& g,
+                                          int ra, int cb) {
+#pragma unroll
+  for (int q = 0; q < BN / 2; ++q) d[q] = 0.f;
+#pragma unroll 8                // rank is a multiple of 8: loads in batches
+  for (int q = 0; q < g.rank; ++q) {
+    const float a0 = da[(size_t)ra * g.rank + q];
+    const float a1 = da[(size_t)(ra + 8) * g.rank + q];
+    const float* brow = db + (size_t)q * g.dup + cb;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 bv = *reinterpret_cast<const float2*>(brow + 8 * j);
+      d[4 * j + 0] = fmaf(a0, bv.x, d[4 * j + 0]);
+      d[4 * j + 1] = fmaf(a0, bv.y, d[4 * j + 1]);
+      d[4 * j + 2] = fmaf(a1, bv.x, d[4 * j + 2]);
+      d[4 * j + 3] = fmaf(a1, bv.y, d[4 * j + 3]);
+    }
+  }
+}
+
+// Sum of Q doubles per thread over the NTHR threads of the block, each
+// written to partials[blk * Q + q], then the cross-block sum of all npart
+// partials by the last block to arrive of nblk (an atomicAdd ticket on
+// *counter, reset to 0 by that block): returns true in every thread of
+// that block, with the fixed-order total in *total.
+template <int NTHR, int Q>
+__device__ __forceinline__ bool last_block_sum(const double (&v)[Q],
+                                               double* partials,
+                                               unsigned* counter, int blk,
+                                               int nblk, int npart,
+                                               double* total) {
+  __shared__ double red[Q][NTHR];
+  __shared__ bool last;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) red[q][t] = v[q];
+  __syncthreads();
+  for (int s = NTHR / 2; s > 0; s >>= 1) {
+    if (t < s) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) red[q][t] += red[q][t + s];
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) partials[blk * Q + q] = red[q][0];
+    __threadfence();
+    last = atomicAdd(counter, 1u) == (unsigned)(nblk - 1);
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  double s = 0.0;
+  for (int q = t; q < npart; q += NTHR) s += __ldcg(partials + q);
+  red[0][t] = s;
+  __syncthreads();
+  for (int h = NTHR / 2; h > 0; h >>= 1) {
+    if (t < h) red[0][t] += red[0][t + h];
+    __syncthreads();
+  }
+  *total = red[0][0];
+  if (t == 0) *counter = 0u;
+  return true;
+}
+
+// The epilogue of a per-call product (B1, B5, E2) on the 64 x BN tile
+// (blockIdx.y, c0) of a block of PNT threads: y = s ((A B) o u + acc) for
+// the thread's elements, and the per-panel sums of squares of y. Each
+// thread sums y^2 per 64 x 32 sub-tile; a sub-tile's partial is a
+// butterfly over the warp, then the four warps in order, so the partials
+// do not depend on BN; the block that draws the last ticket of *counter
+// (left 0) sums each 128-row panel's partials in index order, one warp a
+// panel, into ss[panel]. u, y: the call's rows [g.ddp, g.dup].
+template <int BN>
+__device__ __forceinline__ void matvec_epilogue(const float (&acc)[BN / 2],
+                                                const float* da,
+                                                const float* db,
+                                                const float* u, float* y,
+                                                float s, double* partials,
+                                                unsigned* counter, float* ss,
+                                                const Geo& g, int c0) {
+  // this thread's elements: rows ra and ra + 8, column pairs cb + 8 jj
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int ra = blockIdx.y * PM + 16 * warp + (lane >> 2);
+  const int cb = c0 + 2 * (t & 3);
+  float d[BN / 2];
+  tile_diag<BN>(d, da, db, g, ra, cb);
+  constexpr int Q = BN / 32;
+  double part[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) part[q] = 0.0;
+#pragma unroll
+  for (int jj = 0; jj < BN / 8; ++jj) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = 4 * jj + 2 * h;
+      const size_t off = (size_t)(ra + 8 * h) * g.dup + cb + 8 * jj;
+      const float2 uc = *reinterpret_cast<const float2*>(u + off);
+      float2 yv;
+      yv.x = s * fmaf(d[e], uc.x, acc[e]);
+      yv.y = s * fmaf(d[e + 1], uc.y, acc[e + 1]);
+      part[jj / 4] += (double)yv.x * (double)yv.x
+                      + (double)yv.y * (double)yv.y;
+      *reinterpret_cast<float2*>(y + off) = yv;
+    }
+  }
+  __shared__ double red[Q][4];
+  __shared__ bool last;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    double v = part[q];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) red[q][warp] = v;
+  }
+  __syncthreads();
+  const int nsub = g.dup / 32;
+  if (t < Q) {
+    partials[(size_t)blockIdx.y * nsub + c0 / 32 + t] =
+        ((red[t][0] + red[t][1]) + red[t][2]) + red[t][3];
+    __threadfence();
+  }
+  __syncthreads();
+  if (t == 0)
+    last = atomicAdd(counter, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // panel p: the 2 nsub partials of its two block rows, summed by warp
+  // p % 4 in index order
+  const int n = 2 * nsub;
+  for (int p = warp; p < g.ddp / 128; p += PNT / 32) {
+    double v = 0.0;
+    for (int q = lane; q < n; q += 32)
+      v += __ldcg(partials + (size_t)p * n + q);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) ss[p] = (float)v;
+  }
+  if (t == 0) *counter = 0u;
+}
+
+constexpr int SPLIT_NT = 256;   // threads of a split block, 8 values each
+
+// parts[p * n + k] = part p of x[k], p < P (split2 or split3: round to
+// nearest even)
+template <int P>
+__global__ void __launch_bounds__(SPLIT_NT)
+split_kernel(const float* __restrict__ x, bf16* __restrict__ parts,
+             size_t n) {
+  const size_t stride = (size_t)gridDim.x * SPLIT_NT * 8;
+  for (size_t k = ((size_t)blockIdx.x * SPLIT_NT + threadIdx.x) * 8; k < n;
+       k += stride) {
+    const float4 a = *reinterpret_cast<const float4*>(x + k);
+    const float4 b = *reinterpret_cast<const float4*>(x + k + 4);
+    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    uint4 pv[P];                // the 8 values' parts
+    auto* h = reinterpret_cast<__nv_bfloat162*>(pv);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (P == 2)
+        split2(v[2 * q], v[2 * q + 1], h[q], h[4 + q]);
+      else
+        split3(v[2 * q], v[2 * q + 1], h[q], h[4 + q], h[8 + q]);
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      *reinterpret_cast<uint4*>(parts + p * n + k) = pv[p];
+  }
+}
+
+// parts [P, n] bf16 = the P parts of x [n] f32, n a multiple of 8
+template <int P>
+cudaError_t launch_split(const float* x, bf16* parts, long n,
+                         cudaStream_t s) {
+  if (n <= 0 || n % 8 != 0) return cudaErrorInvalidValue;
+  const long blocks = (n / 8 + SPLIT_NT - 1) / SPLIT_NT;
+  split_kernel<P><<<(unsigned)(blocks < 65536 ? blocks : 65536), SPLIT_NT,
+                    0, s>>>(x, parts, (size_t)n);
+  return cudaGetLastError();
 }
 
 // The output tile's width for nb grids of ddp x dup on a card of `sms`

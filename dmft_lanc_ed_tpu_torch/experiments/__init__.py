@@ -7,5 +7,6 @@
 
 They run on no solver path. Each has a ``main(device="cuda")`` and its
 kernels in ``csrc/`` (``chain_probe.cu``, ``trim_ab.cu``,
-``chain_breakdown.cu``, with the tile product of ``bf16x3.cuh``).
+``chain_breakdown.cu``; E2 and E3 on the pipelined panel product of
+``bs_panel_tc.cuh``).
 """

@@ -14,10 +14,15 @@ time on the TPU, through product forms of the same step:
 
 ``make_variant(op, mode)`` returns ``call(v32p, kk)`` -> (alphas [kk, 1],
 betas [kk, 1]) f32, kk steps from the normalized padded start v32p. On the
-card one CUDA kernel chain serves every form, ``csrc/chain_breakdown.cu``
-(``bd_chain``; the tile product of ``csrc/bf16x3.cuh`` on the tensor
-cores); it counts one launch per call in :data:`launch_counts`. For a CPU
-tensor each form runs its plain version :func:`chain_plain`.
+card one CUDA chain serves every form, ``csrc/chain_breakdown.cu``
+(``bd_chain``): B2's step on the pipelined three-pass product of
+``csrc/bs_panel_tc.cuh`` (``wgmma``), two launches a step; ``1pass``
+issues hi.hi alone over the same staged parts, ``bf16pair`` keeps no f32
+planes, ``nop1`` writes plane prv's parts in pass 0, ``tileskip`` walks
+the runs of :func:`skip_runs`. A call counts one in :data:`launch_counts`,
+its steps in :data:`step_counts` and the kernels it launched in
+:data:`kernel_launches`. For a CPU tensor each form runs its plain version
+:func:`chain_plain`.
 
 ``bf16pair`` deviates from the JAX probe on purpose. The JAX kernel seeds
 its planes from v0 only in the other modes (``chain_breakdown.py:96-99``),
@@ -34,13 +39,14 @@ chained calls of 64 and of 256 steps.
 """
 from __future__ import annotations
 
+import ctypes
 import sys
 from typing import Callable, Tuple
 
 import torch
 
 from ..ops.bf16x3 import _cached, hv_plain, split_bf16, split_op
-from ..ops.blocksparse import _check_cuda_inputs, _geometry, _pop
+from ..ops.blocksparse import _geometry, _mask_runs, _pop, _runs_table
 from ..ops.factory import resolve_device
 from .trim_ab import random_start, sector_854k
 
@@ -50,10 +56,13 @@ MODES = ("3pass", "1pass", "bf16pair", "nop1", "tileskip")
 launch_counts = {"chain_breakdown": 0}
 # the chain steps those launches ran (a kernel's time is quoted per step)
 step_counts = {"chain_breakdown": 0}
+# the CUDA kernels those calls launched (two a step), as the launcher
+# counts them
+kernel_launches = {"chain_breakdown": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, step_counts):
+    for counts in (launch_counts, step_counts, kernel_launches):
         for k in counts:
             counts[k] = 0
 
@@ -73,6 +82,18 @@ def tile_masks(op) -> Tuple[torch.Tensor, torch.Tensor]:
         return ((dw.amax((1, 3)) > 0).to(torch.int32),
                 (up.amax((2, 3)) > 0).to(torch.int32))
     return _cached("tile_masks", _pop(op), make)
+
+
+def skip_runs(op) -> Tuple[torch.Tensor, ...]:
+    """tileskip's stage stream: (dw offsets [ntd + 1], dw pairs, up offsets
+    [ntu + 1], up pairs) int32 on the op's device, the runs of the tiles
+    :func:`tile_masks` sets, in the layout of the op's run tables
+    (``ops/blocksparse._runs_table``); cached per op."""
+    def make(pop):
+        dwm, upm = (m.cpu().numpy() for m in tile_masks(pop))
+        return (*_runs_table(_mask_runs(dwm), pop.device),
+                *_runs_table(_mask_runs(upm), pop.device))
+    return _cached("skip_runs", _pop(op), make)
 
 
 def chain_plain(op, v32p: torch.Tensor, kk: int, mode: str
@@ -116,47 +137,36 @@ def chain_plain(op, v32p: torch.Tensor, kk: int, mode: str
 
 
 def _launch(op, v32p: torch.Tensor, kk: int, mode: str
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], int]:
+    """bd_chain in form `mode` -> ((alphas, betas), the kernels it
+    launched). The buffers are B2's (``ops/bs_chain._chain_buffers``):
+    plane 0 the start and its split parts, state {1, 0, 0, 0}; bf16pair
+    passes no f32 plane."""
     from .. import _kernels
+    from ..ops.bs_chain import _chain_buffers, _split2_ptrs
     pop = _pop(op)
-    lib = _kernels.lib()
     v = v32p.contiguous()
-    _check_cuda_inputs(pop, v)
-    if v.dim() != 2 or kk <= 0:
-        raise ValueError(f"chain_breakdown: one vector [ddp, dup] and kk > "
-                         f"0, got {tuple(v.shape)}, kk={kk}")
-    sp = split_op(pop)
+    if v.dim() != 2:
+        raise ValueError(f"chain_breakdown: one vector [ddp, dup], got "
+                         f"{tuple(v.shape)}")
+    lib, planes, parts, state, partials, counter = _chain_buffers(
+        pop, v[None], kk, 2)
     dev = v.device
-    ddp, dup = pop.padded_shape
-    planes = plane_hi = plane_lo = dwm = upm = None
-    if mode == "bf16pair":
-        plane_hi = torch.zeros((2, ddp, dup), dtype=torch.bfloat16,
-                               device=dev)
-        plane_lo = torch.zeros_like(plane_hi)
-        plane_hi[0], plane_lo[0] = split_bf16(v)
-    else:
-        planes = torch.zeros((2, ddp, dup), dtype=torch.float32, device=dev)
-        planes[0] = v
-    if mode == "tileskip":
-        dwm, upm = tile_masks(pop)
-    state = torch.zeros(4, dtype=torch.float64, device=dev)
-    state[:1].fill_(1.0)           # a device fill: capturable in a graph
-    partials = torch.empty(lib.bd_chain_nblk(ddp, dup), dtype=torch.float64,
-                           device=dev)
+    runs = skip_runs(pop) if mode == "tileskip" else (None,) * 4
     alphas = torch.empty(kk, dtype=torch.float64, device=dev)
     betas = torch.empty(kk, dtype=torch.float64, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    launches = ctypes.c_int(0)
     err = lib.bd_chain(
-        sp.dw_hi.data_ptr(), sp.dw_lo.data_ptr(), sp.up_hi.data_ptr(),
-        sp.up_lo.data_ptr(), pop.diag_a.data_ptr(), pop.diag_b.data_ptr(),
-        ptr(planes), ptr(plane_hi), ptr(plane_lo), ptr(dwm), ptr(upm),
-        state.data_ptr(), partials.data_ptr(), alphas.data_ptr(),
-        betas.data_ptr(), MODES.index(mode), *_geometry(pop), kk,
+        *_split2_ptrs(pop),
+        None if mode == "bf16pair" else planes.data_ptr(), parts.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in runs),
+        state.data_ptr(), partials.data_ptr(), counter.data_ptr(),
+        alphas.data_ptr(), betas.data_ptr(), MODES.index(mode),
+        *_geometry(pop), kk, ctypes.byref(launches),
         torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(err, "bd_chain")
-    return alphas.float().reshape(kk, 1), betas.float().reshape(kk, 1)
+    return ((alphas.float().reshape(kk, 1), betas.float().reshape(kk, 1)),
+            launches.value)
 
 
 def make_variant(op, mode: str) -> Callable:
@@ -171,9 +181,10 @@ def make_variant(op, mode: str) -> Callable:
         if not v32p.is_cuda:
             raise ValueError(f"chain_breakdown: unsupported device "
                              f"{v32p.device}")
-        out = _launch(op, v32p, kk, mode)
+        out, n = _launch(op, v32p, kk, mode)
         launch_counts["chain_breakdown"] += 1
         step_counts["chain_breakdown"] += kk
+        kernel_launches["chain_breakdown"] += n
         return out
     return call
 

@@ -9,14 +9,17 @@ Each form computes B1's function with split-bf16 three-pass products:
 sums of squares [ntd, 1] f32).
 
 Both become one CUDA kernel on the tensor cores, ``csrc/trim_ab.cu``
-(``trim_matvec``), fed the tile lists per side (E2a: the trimmed lists of
+(``trim_matvec``: a split launch, then the three-pass product of
+``csrc/bs_panel_tc.cuh`` on ``wgmma`` with the epilogue and the panel sums
+in one launch), fed the tile lists per side (E2a: the trimmed lists of
 :func:`tables_from_runs` or the whole window, as the mode selects) or the
 op's trim runs (E2b: the tables B1a reads). Every form walks the same
 nonzero tiles in ascending order, so all five give the same bits on the
-card. For a CPU tensor every form runs the plain version
-:func:`matvec_plain`; for a CUDA tensor it launches the kernel or raises,
-and counts the launch in :data:`launch_counts` (``trim_tiles`` for E2a,
-``trim_static_runs`` for E2b).
+card, at every tile width. For a CPU tensor every form runs the plain
+version :func:`matvec_plain`; for a CUDA tensor it launches the kernel or
+raises, and counts the call in :data:`launch_counts` (``trim_tiles`` for
+E2a, ``trim_static_runs`` for E2b) and the kernels it launched (two) in
+:data:`kernel_launches`.
 
     python -m dmft_lanc_ed_tpu_torch.experiments.trim_ab [cuda]
 
@@ -27,6 +30,7 @@ nbath = 11 in microseconds per matvec, as the slope over 200, 700 and
 from __future__ import annotations
 
 import sys
+import ctypes
 from typing import Callable, Tuple
 
 import numpy as np
@@ -34,18 +38,22 @@ import torch
 
 from ..ops.bf16x3 import _cached, hv_plain, split_bf16, split_op
 from ..ops.blocksparse import (_check_cuda_inputs, _geometry, _panel_ss,
-                               _pop, build_blocksparse_op, to_padded)
+                               _pop, build_blocksparse_op, ticket, to_padded)
 from ..ops.factory import resolve_device
 
 MODES = ("untrimmed", "dwtrim", "uptrim", "both")
 
 # kernel launches per form since the last reset (one per matvec call)
 launch_counts = {"trim_tiles": 0, "trim_static_runs": 0}
+# the CUDA kernels those calls launched (the split and the product: two a
+# call), as the launcher counts them
+kernel_launches = {"trim_tiles": 0, "trim_static_runs": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, kernel_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _expand(runs_tup, ntw: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -99,9 +107,10 @@ def matvec_plain(op, v32p: torch.Tensor, scale
 
 
 def _launch(op, v32p: torch.Tensor, scale, kind: int,
-            tables: Tuple[torch.Tensor, ...]
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """trim_matvec over tile lists (kind 0) or runs (kind 1)."""
+            tables: Tuple[torch.Tensor, ...], tile: int
+            ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], int]:
+    """trim_matvec over tile lists (kind 0) or runs (kind 1) -> ((y, ss),
+    the kernels it launched)."""
     from .. import _kernels
     pop = _pop(op)
     lib = _kernels.lib()
@@ -117,34 +126,41 @@ def _launch(op, v32p: torch.Tensor, scale, kind: int,
         s = scale.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
     else:
         s = torch.full((1,), float(scale), dtype=torch.float32, device=dev)
+    parts = torch.empty((2, ddp, dup), dtype=torch.bfloat16, device=dev)
     y = torch.empty_like(v)
     ss = torch.empty((ddp // 128, 1), dtype=torch.float32, device=dev)
     partials = torch.empty(lib.trim_matvec_nblk(ddp, dup),
                            dtype=torch.float64, device=dev)
+    launches = ctypes.c_int(0)
     err = lib.trim_matvec(
         sp.dw_hi.data_ptr(), sp.dw_lo.data_ptr(), sp.up_hi.data_ptr(),
         sp.up_lo.data_ptr(), pop.diag_a.data_ptr(), pop.diag_b.data_ptr(),
-        v.data_ptr(), y.data_ptr(), s.data_ptr(), partials.data_ptr(),
+        v.data_ptr(), parts.data_ptr(), y.data_ptr(), s.data_ptr(),
+        partials.data_ptr(), ticket(dev, "trim_matvec").data_ptr(),
         ss.data_ptr(), kind, *(t.data_ptr() for t in tables),
-        *_geometry(pop), torch.cuda.current_stream(dev).cuda_stream)
+        *_geometry(pop), tile, ctypes.byref(launches),
+        torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(err, "trim_matvec")
-    return y, ss
+    return (y, ss), launches.value
 
 
-def _dispatch(op, v32p, scale, name: str, kind: int, tables):
+def _dispatch(op, v32p, scale, name: str, kind: int, tables, tile: int):
     if v32p.device.type == "cpu":
         return matvec_plain(op, v32p, scale)
     if not v32p.is_cuda:
         raise ValueError(f"trim_ab: unsupported device {v32p.device}")
-    out = _launch(op, v32p, scale, kind, tables)
+    out, n = _launch(op, v32p, scale, kind, tables, tile)
     launch_counts[name] += 1
+    kernel_launches[name] += n
     return out
 
 
 def make_variant(op, mode: str) -> Callable:
-    """E2a: ``call(v32p, scale)`` -> (y [ddp, dup], ss [ntd, 1]) f32, the
-    dw and up windows walked as per-tile lists, trimmed on the sides the
-    mode names (``dwtrim``: dw, ``uptrim``: up, ``both``), else whole."""
+    """E2a: ``call(v32p, scale, tile=0)`` -> (y [ddp, dup], ss [ntd, 1])
+    f32, the dw and up windows walked as per-tile lists, trimmed on the
+    sides the mode names (``dwtrim``: dw, ``uptrim``: up, ``both``), else
+    whole. `tile`: the output tile's width on the card (32, 64 or 128; 0
+    for the launcher's choice); every width gives the same bits."""
     if mode not in MODES:
         raise ValueError(f"trim_ab: mode {mode!r} not in {MODES}")
     trim = tables_from_runs(op)
@@ -152,19 +168,20 @@ def make_variant(op, mode: str) -> Callable:
     dw = trim[:2] if mode in ("dwtrim", "both") else full[:2]
     up = trim[2:] if mode in ("uptrim", "both") else full[2:]
 
-    def call(v32p: torch.Tensor, scale):
-        return _dispatch(op, v32p, scale, "trim_tiles", 0, dw + up)
+    def call(v32p: torch.Tensor, scale, tile: int = 0):
+        return _dispatch(op, v32p, scale, "trim_tiles", 0, dw + up, tile)
     return call
 
 
 def make_static_runs(op) -> Callable:
-    """E2b: ``call(v32p, scale)`` -> (y, ss) as :func:`make_variant`'s,
-    walking the op's per-panel runs of nonzero tiles (the TPU kernel's
-    static runs; here the int32 run tables of B1a)."""
+    """E2b: ``call(v32p, scale, tile=0)`` -> (y, ss) as
+    :func:`make_variant`'s, walking the op's per-panel runs of nonzero
+    tiles (the TPU kernel's static runs; here the int32 run tables of
+    B1a)."""
     runs = _pop(op).runs_trim
 
-    def call(v32p: torch.Tensor, scale):
-        return _dispatch(op, v32p, scale, "trim_static_runs", 1, runs)
+    def call(v32p: torch.Tensor, scale, tile: int = 0):
+        return _dispatch(op, v32p, scale, "trim_static_runs", 1, runs, tile)
     return call
 
 

@@ -1,6 +1,6 @@
 """The split-bf16 products of the kernels B1-B5 and of the experiment
 probes E2/E3: the per-op split of the slabs, and the plain counterparts of
-``csrc/bs_panel_tc.cuh`` and ``csrc/bf16x3.cuh``.
+``csrc/bs_panel_tc.cuh``.
 
 The JAX package reaches f32 accuracy on the TPU's matrix unit with products
 of bf16 parts. B2/B3 take the three-pass product

@@ -133,6 +133,21 @@ def _banded_slabs(h_p: np.ndarray, n: int, np_: int, axis: int
     return slabs, w, d
 
 
+def _mask_runs(mask: np.ndarray) -> Tuple[Tuple, ...]:
+    """Per-panel rows of a tile mask [nt, ntw] -> per-panel tuples of
+    (t0, t1) half-open ranges of its set tiles, ascending."""
+    out = []
+    for row in np.asarray(mask):
+        runs = []
+        for wt in map(int, np.flatnonzero(row)):
+            if runs and runs[-1][1] == wt:
+                runs[-1] = (runs[-1][0], wt + 1)
+            else:
+                runs.append((wt, wt + 1))
+        out.append(tuple(runs))
+    return tuple(out)
+
+
 def _trim_runs(slabs: np.ndarray, axis: int) -> Tuple[Tuple, ...]:
     """Per-panel contiguous RUNS of nonzero window tiles (the zero-tile
     trim).
@@ -144,21 +159,11 @@ def _trim_runs(slabs: np.ndarray, axis: int) -> Tuple[Tuple, ...]:
     skipped terms are exact zeros.
     """
     nt = slabs.shape[0]
-    w = slabs.shape[2] if axis == 0 else slabs.shape[1]
-    ntw = w // 128
-    out = []
-    for p in range(nt):
-        runs = []
-        for wt in range(ntw):
-            tile = (slabs[p, :, wt * 128:(wt + 1) * 128] if axis == 0
-                    else slabs[p, wt * 128:(wt + 1) * 128, :])
-            if np.any(tile != 0.0):
-                if runs and runs[-1][1] == wt:
-                    runs[-1] = (runs[-1][0], wt + 1)
-                else:
-                    runs.append((wt, wt + 1))
-        out.append(tuple(runs))
-    return tuple(out)
+    if axis == 0:
+        tiles = slabs.reshape(nt, 128, slabs.shape[2] // 128, 128)
+        return _mask_runs(np.any(tiles != 0.0, axis=(1, 3)))
+    tiles = slabs.reshape(nt, slabs.shape[1] // 128, 128, 128)
+    return _mask_runs(np.any(tiles != 0.0, axis=(2, 3)))
 
 
 def _runs_table(runs: Tuple[Tuple, ...], device
@@ -426,18 +431,20 @@ def split3_rows(x: torch.Tensor) -> torch.Tensor:
     return parts
 
 
-# the product launches' ticket counters, one int32 per device: 0 between
-# launches (the launch's last block resets it), so a call needs no fill.
+# the product launches' ticket counters, one int32 per device and launch
+# site: 0 between launches (the launch's last block resets it), so a call
+# needs no fill.
 # Calls on one device run in stream order (the port uses one stream).
 _TICKETS: dict = {}
 
 
-def ticket(device: torch.device) -> torch.Tensor:
-    """The ticket counter of B1/B5's product launches on `device`."""
-    t = _TICKETS.get(device)
+def ticket(device: torch.device, site: str = "bs_matvec") -> torch.Tensor:
+    """The ticket counter of a launch site's product launches on `device`
+    (B1/B5's ``bs_matvec``, E2's ``trim_matvec``)."""
+    t = _TICKETS.get((device, site))
     if t is None:
-        t = _TICKETS[device] = torch.zeros(1, dtype=torch.int32,
-                                           device=device)
+        t = _TICKETS[(device, site)] = torch.zeros(1, dtype=torch.int32,
+                                                   device=device)
     return t
 
 

@@ -197,9 +197,9 @@ def test_chain_step_normalizes():
 
 def _slab_apply(pop, u, runs=None):
     """H_p u through the banded slabs with the CUDA kernel's window clamps
-    (csrc/bs_panel.cuh hop_tile), one 128-tile of the window at a time in
-    ascending order, over the given runs (default: the whole windows), in
-    numpy f64."""
+    (csrc/bs_panel_tc.cuh panel_stream), one 128-tile of the window at a
+    time in ascending order, over the given runs (default: the whole
+    windows), in numpy f64."""
     ddp, dup = pop.padded_shape
     dw, up = pop.dw_f32.double().numpy(), pop.up_f32.double().numpy()
     if runs is None:

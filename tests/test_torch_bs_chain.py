@@ -176,7 +176,7 @@ def test_gf_tridiag_batch_matches_reference():
 
 def _slab_apply(pop, u):
     """H_p u through the banded slabs with the CUDA kernel's window clamps
-    (csrc/bs_panel.cuh hop_tile), in numpy f64."""
+    (csrc/bs_panel_tc.cuh panel_stream), in numpy f64."""
     ddp, dup = pop.padded_shape
     dw, up = pop.dw_f32.double().numpy(), pop.up_f32.double().numpy()
     y = (pop.diag_a.double() @ pop.diag_b.double()).numpy() * u

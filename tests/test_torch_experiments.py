@@ -124,6 +124,25 @@ def test_tables_masks_and_split_equal_reference(jprobes, geo):
                    + op_p.pop.trim_runs[1])
 
 
+@pytest.mark.parametrize("geo", [NB10, NB11])
+def test_skip_runs_walk_the_reference_masks(jprobes, geo):
+    """E3's tileskip stage stream: the run tables built from tile_masks
+    expand, panel by panel, to exactly the tiles the JAX probe's
+    _tile_masks sets, in ascending order (what the kernel's Runs cursor
+    walks)."""
+    _, op_j, op_p = _ops(*geo)
+    runs = pcb.skip_runs(op_p)
+    ref = jprobes["chain_breakdown"]._tile_masks(op_j)
+    for (ptr, tab), mask in zip((runs[:2], runs[2:]), ref):
+        assert ptr.dtype == tab.dtype == torch.int32
+        mask, ptr, tab = np.asarray(mask), ptr.numpy(), tab.numpy()
+        assert ptr.shape == (mask.shape[0] + 1,) and ptr[0] == 0
+        for p, row in enumerate(mask):
+            walked = [t for t0, t1 in tab[ptr[p]:ptr[p + 1]]
+                      for t in range(t0, t1)]
+            assert walked == np.flatnonzero(row).tolist()
+
+
 def test_chain_probe_plain_matches_reference(jprobes):
     """E1: the plain chain against the JAX probe's kernel (interpret)."""
     v0, a = pcp.probe_inputs("cpu")

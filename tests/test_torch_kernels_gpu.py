@@ -441,9 +441,17 @@ def test_chain_probe_kernel_matches_plain(cuda):
 
 
 E_GEOMETRIES = [(10, (5, 5)), (11, (5, 5))]
+# E2 also where a dw panel lists no tile ((6, (3, 0)): dim_dw = 1) and where
+# no block lists any ((6, (0, 0)): every block walks one zero tile)
+E2_GEOMETRIES = E_GEOMETRIES + [(6, (3, 0)), (6, (0, 0))]
 
 
-@pytest.mark.parametrize("nbath,sqn", E_GEOMETRIES)
+def _trim_forms(op):
+    return [tab.make_variant(op, m) for m in tab.MODES] \
+        + [tab.make_static_runs(op)]
+
+
+@pytest.mark.parametrize("nbath,sqn", E2_GEOMETRIES)
 def test_trim_forms_match_plain_bit_identical(cuda, nbath, sqn):
     """E2's five forms (tile lists in four modes, the trim runs) against
     the plain version (y 1e-5 x max|y|, panel sums 1e-5 relative; split-
@@ -453,9 +461,7 @@ def test_trim_forms_match_plain_bit_identical(cuda, nbath, sqn):
     v = _starts(op, 1, 9)[0]
     y_p, ss_p = tab.matvec_plain(op, v, 0.5)
     before = dict(tab.launch_counts)
-    calls = [tab.make_variant(op, m) for m in tab.MODES] \
-        + [tab.make_static_runs(op)]
-    outs = [c(v, 0.5) for c in calls]
+    outs = [c(v, 0.5) for c in _trim_forms(op)]
     assert tab.launch_counts["trim_tiles"] == before["trim_tiles"] + 4
     assert tab.launch_counts["trim_static_runs"] == \
         before["trim_static_runs"] + 1
@@ -465,6 +471,69 @@ def test_trim_forms_match_plain_bit_identical(cuda, nbath, sqn):
                  ) <= 1e-5
     for y, ss in outs[1:]:
         assert torch.equal(y, y0) and torch.equal(ss, ss0)
+
+
+@pytest.mark.parametrize("nbath,sqn", E2_GEOMETRIES)
+def test_trim_bits_across_tiles_and_reruns(cuda, nbath, sqn):
+    """E2 sums every element's products in one order whatever the tile
+    width, and its panel sums from one partial per 64 x 32 sub-tile: y and
+    ss are the same bits at 64 x 32, 64 x 64 and 64 x 128 (the launcher's
+    width among them) and on a rerun, in every form; a call is two
+    launches (the split, the product)."""
+    op = _op(cuda, nbath, sqn)
+    v = _starts(op, 1, 18)[0]
+    for call in _trim_forms(op):
+        y, ss = call(v, 0.75)
+        for tile in (32, 64, 128, 0):
+            before = sum(tab.kernel_launches.values())
+            y_t, ss_t = call(v, 0.75, tile=tile)
+            assert sum(tab.kernel_launches.values()) == before + 2
+            assert torch.equal(y_t, y) and torch.equal(ss_t, ss)
+
+
+@pytest.mark.parametrize("mode", cbd.MODES)
+def test_chain_breakdown_two_launches_a_step(cuda, mode):
+    """E3 runs each step as two kernel launches (the product with its
+    epilogue, then the orthogonalization), in every form, as counted by
+    the launcher; a rerun gives the same bits."""
+    op = _op(cuda, 10, (5, 5))
+    v = _starts(op, 1, 19)[0]
+    call = cbd.make_variant(op, mode)
+    cbd.reset_launch_counts()
+    al, be = call(v, 12)
+    assert cbd.launch_counts["chain_breakdown"] == 1
+    assert cbd.step_counts["chain_breakdown"] == 12
+    assert cbd.kernel_launches["chain_breakdown"] == 2 * 12
+    al_r, be_r = call(v, 12)
+    assert torch.equal(al_r, al) and torch.equal(be_r, be)
+
+
+def test_probes_in_a_cuda_graph(cuda):
+    """An E2 call (split, product, panel sums by the last block; the scale
+    a device scalar) and an E3 chain (two launches a step, the state on the
+    card) capture into a CUDA graph, whose replay gives the eager bits."""
+    op = _op(cuda, 10, (5, 5))
+    v = _starts(op, 1, 20)[0]
+    r = torch.full((), 0.5, device=cuda)
+    e2 = tab.make_variant(op, "both")
+    e3 = cbd.make_variant(op, "tileskip")
+    y_e, ss_e = e2(v, r)
+    al_e, be_e = e3(v, 10)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        e2(v, r)
+        e3(v, 10)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g, ss_g = e2(v, r)
+        al_g, be_g = e3(v, 10)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y_g, y_e) and torch.equal(ss_g, ss_e)
+        assert torch.equal(al_g, al_e) and torch.equal(be_g, be_e)
 
 
 @pytest.mark.parametrize("mode", cbd.MODES)
