@@ -79,9 +79,16 @@ nonzero without a result line):
    results identical. Times are two ranks time-sliced on one card, not a
    multi-card number.
 8. the experiment probes E1-E3 (``dmft_lanc_ed_tpu_torch/experiments``),
-   which run on no solver path: (a) E1, the power chain in one cooperative
-   launch, against its plain version within the probe's gates (norms
-   1e-5, vout 1e-4 relative); (b) E2's five forms (the tile lists in four
+   which run on no solver path: (a) E1, the power chain in one cluster
+   launch of 16 CTAs, at K = 7 and 71, against its six-pass plain version
+   and against the f32 chain within the probe's gates (norms 1e-5, vout
+   1e-4 relative), reruns
+   bit-identical, one launch a call; the time a step at K = 7, the marginal
+   step (K = 7 vs 71) and the intercept (the launch and the load of A), a
+   step's split by the kernel's clock trace (product, exchange, barrier,
+   rest), the cluster's CTAs, shared memory and registers, both bounds
+   (six-pass tensor and FP32) and B2's step at the SHAPES of phases 2 and
+   2s; (b) E2's five forms (the tile lists in four
    modes, the trim runs) at the 854k sector against the plain version (y
    within 1e-5 x max|y|, panel sums of squares 1e-5 relative) and
    bit-identical to each other; (c) E3's five product forms, m = 96,
@@ -103,7 +110,7 @@ published H100 SXM peaks), both counted over the nonzero 128 x 128 window
 tiles of the op (its trim runs), the tiles the product needs; B2, B3, E2
 and E3 count their split-bf16 products at the 989 TFLOP/s dense bf16
 tensor-core peak (three passes, E3's 1pass one over the same bytes; the
-rest FP32), B1, B4 and B5 their six passes there.
+rest FP32), B1, B4, B5 and E1 their six passes there.
 A chain kernel's
 ``launches`` are chain launches and its ``steps`` the steps they ran; its
 ``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
@@ -307,8 +314,7 @@ def phase1():
         _kernels.build_seconds.items(), key=lambda kv: -kv[1]))
     say(f"phase 1: built {os.path.relpath(so, ROOT)} in "
         f"{time.perf_counter() - t0:.2f} s ({each or 'cached'})")
-    # an earlier tree's _kernels records no warnings
-    warned = getattr(_kernels, "build_warnings", {})
+    warned = _kernels.build_warnings
     for src, lines in sorted(warned.items()):
         for ln in lines:
             say(f"  nvcc {src}: {ln}")
@@ -667,7 +673,7 @@ def b5_bound(op, sh):
 
 def phase2s():
     """The kernels' time per step or call at SHAPES and GF_SHAPES (module
-    docstring). The chains by CUDA events around three back-to-back chains
+    docstring); returns B2's ms a step at each of SHAPES. The chains by CUDA events around three back-to-back chains
     (an earlier tree's B4 wrapper fills its state from the host, which a
     CUDA graph cannot capture, and every step here takes the card longer
     than the host takes to enqueue it); B1 and B5, a call of tens of us, by
@@ -684,6 +690,7 @@ def phase2s():
         v /= np.linalg.norm(v.reshape(n, -1), axis=1)[:, None, None]
         return to_padded(op, v)
     m, kk = 96, bc._bucket_k(128)
+    b2_steps = {}
     for sqn in SHAPES:
         op = sector_854k(sqn)[3]
         v0 = starts(op, 1)[0]
@@ -691,6 +698,7 @@ def phase2s():
         ms2 = cuda_ms(lambda: bc.tridiag_call(op, v0, m), 3) / m
         ms3 = cuda_ms(lambda: bc.cheb_call(op, v0, kk, 0.3, 0.2), 3) / kk
         b2, b3 = chain_bounds(op.pop, m, kk)
+        b2_steps[sqn] = ms2
         say(f"  shape {tuple(sqn)} padded {op.padded_shape}: B2 {ms2:.4f} ms "
             f"a step (bound {b2[0]:.4f} ms, {b2[1]}), B3 {ms3:.4f} ms a step "
             f"(bound {b3[0]:.4f} ms, {b3[1]})")
@@ -718,6 +726,7 @@ def phase2s():
         say(f"  shape {tuple(sqn)} padded {op.padded_shape}: B4 {nb} "
             f"chain{'s' if nb > 1 else ''} {ms4:.4f} ms a step (bound "
             f"{b4[0]:.4f} ms, {b4[1]})")
+    return b2_steps
 
 
 def phase3(cfg, sec, op, e0):
@@ -926,12 +935,13 @@ def phase6(op):
     return [("sharded_matvec", err, ms_k, ms_p, b_ms, b_by)]
 
 
-def phase8(op, earlier):
+def phase8(op, earlier, b2_steps):
     """The experiment probes E1-E3: each kernel against its plain version
     (launches not counted), then the probes' entry points, the main path
     of this slice, with their launch counts set to 0 just before and read
-    just after. `earlier`: the kernel rows of phases 2 and 6, whose times
-    are printed beside the probes'."""
+    just after. `earlier`: the kernel rows of phases 2 and 6, and
+    `b2_steps`: phase 2s's B2 ms a step by shape, printed beside the
+    probes' times."""
     import torch
     from dmft_lanc_ed_tpu_torch.experiments import chain_breakdown as cb
     from dmft_lanc_ed_tpu_torch.experiments import chain_probe as cp
@@ -945,42 +955,79 @@ def phase8(op, earlier):
     prior = {r[0]: r[2] for r in earlier}
     rows = []
 
-    # (a) E1: the probe's gates, kernel against plain
+    # (a) E1: the probe's gates, kernel against its plain version and
+    # against the f32 chain; reruns bit-identical, one launch a call
     v0, a = cp.probe_inputs(DEVICE)
-    n_k, v_k = cp.chain(v0, a)
-    n_p, v_p = cp.chain_plain(v0, a)
-    torch.cuda.synchronize()
-    err_n = float((n_k - n_p).abs().max() / n_p.abs().max())
-    err_v = float((v_k - v_p).abs().max() / v_p.abs().max())
-    say(f"E1 chain_probe N={cp.N} K={cp.K}: norms rel diff {err_n:.3e} (tol "
-        f"1e-5), vout rel diff {err_v:.3e} (tol 1e-4)")
-    if not (err_n <= 1e-5 and err_v <= 1e-4):
-        raise AssertionError("E1 kernel disagrees with its plain version")
     n, kk = cp.N, cp.K
+    for k in (kk, 71):
+        l0 = cp.launch_counts["chain_probe"]
+        n_k, v_k = cp.chain(v0, a, k)
+        n_r, v_r = cp.chain(v0, a, k)
+        launches = cp.launch_counts["chain_probe"] - l0
+        n_p, v_p = cp.chain_plain(v0, a, k)
+        torch.cuda.synchronize()
+        same = torch.equal(n_k, n_r) and torch.equal(v_k, v_r)
+        d_p = (float((n_k - n_p).abs().max() / n_p.abs().max()),
+               float((v_k - v_p).abs().max() / v_p.abs().max()))
+        n_f, v_f = cp.reference(v0.cpu().numpy(), a.cpu().numpy(), k)
+        d_f = (float(np.abs(n_k.cpu().numpy().ravel() - n_f).max()
+                     / np.abs(n_f).max()),
+               float(np.abs(v_k.cpu().numpy() - v_f).max()
+                     / np.abs(v_f).max()))
+        say(f"E1 chain_probe N={n} K={k}: norms / vout rel diff vs plain "
+            f"{d_p[0]:.3e} / {d_p[1]:.3e}, vs the f32 chain {d_f[0]:.3e} / "
+            f"{d_f[1]:.3e} (tol 1e-5 / 1e-4); reruns bit-identical: {same}; "
+            f"launches a call {launches / 2:g}")
+        if not (max(d_p[0], d_f[0]) <= 1e-5 and max(d_p[1], d_f[1])
+                <= 1e-4):
+            raise AssertionError("E1 kernel disagrees with its plain "
+                                 "version or the f32 chain")
+        if not (same and launches == 2):
+            raise AssertionError("E1 reruns differ or a call is not one "
+                                 "launch")
+        if k == kk:
+            err_v = float((v_k - v_p).abs().max())
     ms_k = device_ms(lambda: cp.chain(v0, a), 200, 3) / kk
-    ms_p = device_ms(lambda: cp.chain_plain(v0, a), 50, 3) / kk
-    # the marginal step, without the launch and the load of A: K = 7 vs 71
+    # the marginal step, without the launch and the load of A: K = 7 vs
+    # 71; the intercept: the launch and the load of A
     ms_71 = device_ms(lambda: cp.chain(v0, a, 71), 50, 3)
     marginal = (ms_71 - kk * ms_k) / (71 - kk)
-    b_e1 = bound(2 * n * n * 128 + 4 * n * 128,
-                 (4 * n * n + 8 * n * 128 + 4 * kk) / kk)
-    rows.append(("chain_probe", float((v_k - v_p).abs().max()), ms_k, ms_p,
-                 *b_e1))
-    say(f"  E1 per step: kernel {1e3 * ms_k:.3f} us (one cooperative launch, "
-        f"a grid sync per step; marginal step {1e3 * marginal:.3f} us from "
-        f"K = {kk} vs 71), plain {1e3 * ms_p:.3f} us, bound "
-        f"{1e3 * b_e1[0]:.3f} us ({b_e1[1]}); B2's step (2 launches, 854k): "
-        f"{prior.get('tridiag', float('nan')):.4f} ms")
+    icpt = kk * (ms_k - marginal)
+    ms_p = device_ms(lambda: cp.chain_plain(v0, a), 50, 3) / kk
+    # a step: six bf16 tensor-core passes (or one FP32 product), ~10 FP32
+    # operations an element of y (scale, square, split); A and v0 in once,
+    # vout and the norms out once a call
+    step = 2 * n * n * 128
+    nbytes = (4 * n * n + 8 * n * 128 + 4 * kk) / kk
+    b_tc = bound_tc(6 * step, 10 * n * 128, nbytes)
+    b_32 = bound(step, nbytes)
+    b2 = ", ".join(f"{tuple(q)} {1e3 * b2_steps[q]:.2f}" for q in SHAPES
+                   if q in b2_steps) or "n/a (phase 2s not run)"
+    g = cp.geometry()
+    say(f"  E1 (a cluster of {g['ctas']} CTAs of 64 x {cp.BN}, "
+        f"{g['smem_dynamic'] / 1024:.1f} KB dynamic + {g['smem_static']} B "
+        f"static shared memory and {g['registers']} registers a thread, "
+        f"{g['clusters']} such clusters at once): {1e3 * ms_k:.3f} us a step "
+        f"at K = {kk}, marginal step {1e3 * marginal:.3f} us (K = {kk} vs "
+        f"71), intercept {1e3 * icpt:.3f} us (launch + load of A)")
+    ph = cp.step_phases(v0, a, 71)
+    say(f"  E1 a step by the kernel's clock trace (K = 71, "
+        f"{ph['step_clocks']:.0f} clocks), as shares of the marginal step: "
+        + ", ".join(f"{k} {1e3 * marginal * ph[k]:.3f} us ({100 * ph[k]:.1f} "
+                    "%)" for k in ("product", "epilogue", "barrier", "rest")))
+    say(f"  E1 plain {1e3 * ms_p:.3f} us a step; bound {1e3 * b_tc[0]:.3f} us "
+        f"six-pass tensor ({b_tc[1]}), {1e3 * b_32[0]:.3f} us FP32 "
+        f"({b_32[1]}); B2 a step, us: {b2} (phase 2s, events), (6, 6) "
+        f"{1e3 * prior.get('tridiag', float('nan')):.2f} (phase 2, graph "
+        "replay)")
+    rows.append(("chain_probe", err_v, ms_k, ms_p, *b_tc))
 
-    # the CUDA kernels a probe's calls launched, where its launcher counts
-    # them (an earlier tree's does not: None)
+    # the CUDA kernels a probe's calls launched, as its launcher counts them
     def kernels(mod):
-        counts = getattr(mod, "kernel_launches", None)
-        return None if counts is None else sum(counts.values())
+        return sum(mod.kernel_launches.values())
 
     def per(n0, mod, calls):
-        n1 = kernels(mod)
-        return "n/a" if n1 is None else f"{(n1 - n0) / calls:g}"
+        return f"{(kernels(mod) - n0) / calls:g}"
 
     # (b) E2: the five forms against plain and against each other
     v = ta.random_start(op, 13)
@@ -1090,7 +1137,7 @@ def phase8(op, earlier):
         f"kernel launches {kernels(ta)}")
     if any(c <= 0 for c in counts.values()):
         raise AssertionError(f"a probe kernel never launched: {counts}")
-    if e3_kernels is not None and e3_kernels != 2 * steps["chain_breakdown"]:
+    if e3_kernels != 2 * steps["chain_breakdown"]:
         raise AssertionError("E3 is not two kernel launches a step")
     return rows, counts, steps
 
@@ -1257,8 +1304,9 @@ def main():
                 oracle.shutdown()
             if "2" in phases:
                 rows = phase2(op, e0, v_gs)
+            b2_steps = {}
             if "2s" in phases:
-                phase2s()
+                b2_steps = phase2s()
             if "3" in phases:
                 e_gs, _ = phase3(cfg, sec, op, e0)
             if "3b" in phases:
@@ -1266,7 +1314,7 @@ def main():
             if "6" in phases:
                 rows += phase6(op)
             if "8" in phases:
-                r8, c8, s8 = phase8(op, rows)
+                r8, c8, s8 = phase8(op, rows, b2_steps)
                 rows += r8
                 counts.update(c8)
                 steps.update(s8)

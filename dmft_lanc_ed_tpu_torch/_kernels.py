@@ -135,7 +135,9 @@ def lib() -> ctypes.CDLL:
             + [vp]
         # the experiment probes' kernels (experiments/)
         cdll.chain_probe.restype = i32
-        cdll.chain_probe.argtypes = [vp] * 6 + [i32] * 2 + [vp]
+        cdll.chain_probe.argtypes = [vp] * 5 + [i32, vp]
+        cdll.chain_probe_geometry.restype = i32
+        cdll.chain_probe_geometry.argtypes = [vp]
         # (E2, E3: the last pointer counts the kernels a call launched)
         ip = ctypes.POINTER(i32)
         cdll.trim_matvec_nblk.restype = i32

@@ -3,6 +3,9 @@
 // (bs_matvec.cu) and of the probes E2 (trim_ab.cu) and E3
 // (chain_breakdown.cu) on Hopper's warpgroup tensor cores (wgmma, sm_90a).
 //
+// The probe E1 (chain_probe.cu) runs the six-pass product on A resident in
+// shared memory (mma_stage_ab), with no ring.
+//
 // Replaces the panel applies of the TPU's Pallas chain kernels
 // (dmft_lanc_ed_tpu/ops/bs_chain.py), in the product form each has, and
 // carries B1/B5 at FP32 grade in B4's form. With
@@ -319,17 +322,18 @@ __device__ __forceinline__ void load_stage(uint32_t slot,
   }
 }
 
-// the passes of one staged 64-deep step: NP = 3 at P = 2 (hi.hi, lo.hi,
-// hi.lo), NP = 6 at P = 3 (hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid);
-// NP = 1 at P = 2 is hi.hi alone over the same staged parts (the probe E3's
-// "1pass" form: the staging of the three-pass product without two of its
-// tensor-core passes)
+// the passes of one 64-deep step: NP = 3 at P = 2 (hi.hi, lo.hi, hi.lo),
+// NP = 6 at P = 3 (hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid); NP = 1 at
+// P = 2 is hi.hi alone over the same staged parts (the probe E3's "1pass"
+// form: the staging of the three-pass product without two of its
+// tensor-core passes). The P parts of A start at aslot, A_BYTES apart, the
+// P parts of B at bslot, Ring<BN, P>::B_BYTES apart.
 template <int BN, int P, int NP = P * (P + 1) / 2>
-__device__ __forceinline__ void mma_stage(float (&acc)[BN / 2],
-                                          uint32_t slot) {
+__device__ __forceinline__ void mma_stage_ab(float (&acc)[BN / 2],
+                                             uint32_t aslot,
+                                             uint32_t bslot) {
   static_assert(NP == P * (P + 1) / 2 || (P == 2 && NP == 1),
                 "the passes of a P-part product");
-  const uint32_t bslot = slot + P * A_BYTES;
   // B: 8 rows of depth are one swizzle atom (1024 bytes, or 512 at BN = 32)
   constexpr uint32_t B_SBO = BN == 32 ? 512 : 1024;
   constexpr uint32_t B_LBO = PK * 128;        // BN = 128: the next 64 columns
@@ -339,7 +343,7 @@ __device__ __forceinline__ void mma_stage(float (&acc)[BN / 2],
     uint64_t da[P], db[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      da[p] = smem_desc(slot + p * A_BYTES + ks * 32, 16, 1024, 1);
+      da[p] = smem_desc(aslot + p * A_BYTES + ks * 32, 16, 1024, 1);
       db[p] = smem_desc(bslot + p * Ring<BN, P>::B_BYTES + ks * 2 * B_SBO,
                         B_LBO, B_SBO, B_SWZ);
     }
@@ -358,6 +362,13 @@ __device__ __forceinline__ void mma_stage(float (&acc)[BN / 2],
       wgmma_bf16<BN>(acc, da[1], db[1]);
     }
   }
+}
+
+// mma_stage_ab on a ring slot: the stage's A parts, then its B parts
+template <int BN, int P, int NP = P * (P + 1) / 2>
+__device__ __forceinline__ void mma_stage(float (&acc)[BN / 2],
+                                          uint32_t slot) {
+  mma_stage_ab<BN, P, NP>(acc, slot, slot + P * A_BYTES);
 }
 
 // The split slabs the product reads: part p of the dw slabs [ntd, 128,

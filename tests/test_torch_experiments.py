@@ -11,7 +11,9 @@ Tolerances, each with its origin:
 - tile tables, tile masks and the bf16 split of the slabs: exact (the same
   numpy and the same round-to-nearest-even on the same f32 slabs);
 - E1: norms and vout 1e-5 relative (f32 products summed in other orders;
-  the probe's own gates are 1e-5 and 1e-4 against numpy);
+  the probe's own gates are 1e-5 and 1e-4 against numpy); the six-pass
+  plain chain at K = 1 and 7 within those gates of the JAX probe and of
+  its numpy chain;
 - E2, every form: y 1e-6 x max|y|, panel sums of squares 1e-5 relative
   (the same exact bf16 products, f32 sums in other orders);
 - E3, every form but bf16pair: the first 8 alpha, beta within 1e-5 x
@@ -153,6 +155,66 @@ def test_chain_probe_plain_matches_reference(jprobes):
     nj, vj = np.asarray(nj), np.asarray(vj)
     assert np.abs(np_.numpy() - nj).max() <= 1e-5 * np.abs(nj).max()
     assert np.abs(vp.numpy() - vj).max() <= 1e-5 * np.abs(vj).max()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_chain_probe(kk):
+    """The JAX probe module with K = kk steps (a fresh copy: its kernel and
+    grid read the module's K when traced)."""
+    mod = _load("chain_probe")
+    mod.K = kk
+    return mod
+
+
+@pytest.mark.parametrize("kk", [1, 7])
+def test_chain_probe_six_pass_plain_within_probe_gates(kk):
+    """E1's plain version, the kernel's six-pass product, against the JAX
+    probe's kernel (interpret) and against its f32 numpy chain, within the
+    probe's gates: norms 1e-5, vout 1e-4 relative."""
+    v0, a = pcp.probe_inputs("cpu")
+    n_p, v_p = pcp.chain_plain(v0, a, kk)
+    assert n_p.shape == (kk, 1) and v_p.shape == (pcp.N, 128)
+    nj, vj = _jax_chain_probe(kk).chain(jnp.asarray(v0.numpy()),
+                                        jnp.asarray(a.numpy()), True)
+    n_r, v_r = pcp.reference(v0.numpy(), a.numpy(), kk)
+    for n_ref, v_ref in ((np.asarray(nj).ravel(), np.asarray(vj)),
+                         (n_r, v_r)):
+        assert n_ref.shape == (kk,)
+        assert (np.abs(n_p.numpy().ravel() - n_ref).max()
+                <= 1e-5 * np.abs(n_ref).max())
+        assert np.abs(v_p.numpy() - v_ref).max() <= 1e-4 * np.abs(v_ref).max()
+
+
+def test_chain_probe_refuses_what_one_cluster_cannot_hold():
+    """The wrapper raises, on the CPU too, on an n past one cluster (n =
+    288 passed its checks while the kernel took multiples of 32), on
+    mismatched shapes, a non-square A, other types and kk < 1."""
+    v0, a = pcp.probe_inputs("cpu")
+    big = torch.zeros((288, 128)), torch.zeros((288, 288))
+    for args, kw in ((big, {}), ((v0[:64], a), {}), ((v0, a.double()), {}),
+                     ((v0, a), {"kk": 0}), ((v0, a[:, :128]), {})):
+        with pytest.raises(ValueError):
+            pcp.chain(*args, **kw)
+    # below the cluster's 256 rows the wrapper takes any n (it pads)
+    n_s, v_s = pcp.chain(v0[:200].contiguous(), a[:200, :200].contiguous(),
+                         3)
+    n_r, v_r = pcp.reference(v0[:200].numpy(), a[:200, :200].numpy(), 3)
+    assert v_s.shape == (200, 128)
+    assert np.abs(n_s.numpy().ravel() - n_r).max() <= 1e-5 * n_r.max()
+
+
+def test_chain_probe_aligns_offset_views():
+    """The kernel reads v0 and A by 16-byte copies: a contiguous view at a
+    storage offset of one float gets an aligned copy of the same values,
+    an aligned tensor is passed as it is."""
+    v0, _ = pcp.probe_inputs("cpu")
+    buf = torch.zeros(v0.numel() + 1)
+    view = buf[1:].view_as(v0)
+    view.copy_(v0)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    got = pcp._aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, v0)
+    assert pcp._aligned(v0) is v0
 
 
 def test_chain_probe_main_checks_on_cpu(capsys):

@@ -428,16 +428,75 @@ def test_sharded_matvec_refuses_bad_inputs(cuda):
         bsh._local_call(sh, v_loc, v_ext[:-128].contiguous())
 
 
-def test_chain_probe_kernel_matches_plain(cuda):
-    """E1, one cooperative launch of K steps, against its plain version
-    within the probe's gates (norms 1e-5, vout 1e-4 relative)."""
+@pytest.mark.parametrize("kk", [1, 7, 71])
+def test_chain_probe_kernel_matches_plain(cuda, kk):
+    """E1, one cluster launch of kk steps: one launch a call, reruns
+    bit-identical, within the probe's gates (norms 1e-5, vout 1e-4
+    relative) of its six-pass plain version and of the f32 chain."""
     v0, a = cpr.probe_inputs(cuda)
     before = cpr.launch_counts["chain_probe"]
-    n_k, v_k = cpr.chain(v0, a)
+    n_k, v_k = cpr.chain(v0, a, kk)
     assert cpr.launch_counts["chain_probe"] == before + 1
-    n_p, v_p = cpr.chain_plain(v0, a)
+    n_r, v_r = cpr.chain(v0, a, kk)
+    assert torch.equal(n_r, n_k) and torch.equal(v_r, v_k)
+    n_p, v_p = cpr.chain_plain(v0, a, kk)
     assert float((n_k - n_p).abs().max()) <= 1e-5 * float(n_p.abs().max())
     assert float((v_k - v_p).abs().max()) <= 1e-4 * float(v_p.abs().max())
+    n_f, v_f = cpr.reference(v0.cpu().numpy(), a.cpu().numpy(), kk)
+    n_k, v_k = n_k.cpu().numpy().ravel(), v_k.cpu().numpy()
+    assert np.abs(n_k - n_f).max() <= 1e-5 * np.abs(n_f).max()
+    assert np.abs(v_k - v_f).max() <= 1e-4 * np.abs(v_f).max()
+
+
+def test_chain_probe_clock_trace(cuda):
+    """E1's clock trace: the step's four phases are shares, none negative,
+    that add up to the step."""
+    v0, a = cpr.probe_inputs(cuda)
+    ph = cpr.step_phases(v0, a, 12)
+    parts = [ph[k] for k in ("product", "epilogue", "barrier", "rest")]
+    assert all(p >= 0 for p in parts) and abs(sum(parts) - 1) < 1e-9
+    assert ph["step_clocks"] > 0
+
+
+def test_chain_probe_refuses_unsupported_shapes(cuda):
+    """E1's wrapper raises on a CUDA tensor it cannot take, launching
+    nothing and not falling back; below 256 rows it pads, and the kernel's
+    rows equal the full-size kernel's on a zero-padded input."""
+    v0, a = cpr.probe_inputs(cuda)
+    before = cpr.launch_counts["chain_probe"]
+    for args in ((torch.zeros((320, 128), device=cuda),
+                  torch.zeros((320, 320), device=cuda)),
+                 (v0[:, :64].contiguous(), a), (v0.double(), a)):
+        with pytest.raises(ValueError):
+            cpr.chain(*args)
+    assert cpr.launch_counts["chain_probe"] == before
+    n = 192
+    v0s, a_s = v0[:n].contiguous(), a[:n, :n].contiguous()
+    n_s, v_s = cpr.chain(v0s, a_s, 5)
+    pad = torch.zeros_like(v0)
+    pad[:n] = v0s
+    a_pad = torch.zeros_like(a)
+    a_pad[:n, :n] = a_s
+    n_f, v_f = cpr.chain(pad, a_pad, 5)
+    assert torch.equal(n_s, n_f) and torch.equal(v_s, v_f[:n])
+    assert not v_f[n:].any()
+
+
+def test_chain_probe_takes_offset_views(cuda):
+    """E1 on contiguous views at a storage offset of one float (not 16-byte
+    aligned, which the kernel's bulk copy of A needs): the same bits as on
+    the tensors themselves, no fault."""
+    v0, a = cpr.probe_inputs(cuda)
+    views = []
+    for x in (v0, a):
+        buf = torch.zeros(x.numel() + 1, device=cuda)
+        view = buf[1:].view_as(x)
+        view.copy_(x)
+        assert view.data_ptr() % 16 != 0
+        views.append(view)
+    n_k, v_k = cpr.chain(v0, a, 7)
+    n_o, v_o = cpr.chain(*views, 7)
+    assert torch.equal(n_o, n_k) and torch.equal(v_o, v_k)
 
 
 E_GEOMETRIES = [(10, (5, 5)), (11, (5, 5))]
@@ -510,30 +569,36 @@ def test_chain_breakdown_two_launches_a_step(cuda, mode):
 
 def test_probes_in_a_cuda_graph(cuda):
     """An E2 call (split, product, panel sums by the last block; the scale
-    a device scalar) and an E3 chain (two launches a step, the state on the
-    card) capture into a CUDA graph, whose replay gives the eager bits."""
+    a device scalar), an E3 chain (two launches a step, the state on the
+    card) and an E1 chain (a cluster launch) capture into a CUDA graph,
+    whose replay gives the eager bits."""
     op = _op(cuda, 10, (5, 5))
     v = _starts(op, 1, 20)[0]
     r = torch.full((), 0.5, device=cuda)
     e2 = tab.make_variant(op, "both")
     e3 = cbd.make_variant(op, "tileskip")
+    p0, pa = cpr.probe_inputs(cuda)
     y_e, ss_e = e2(v, r)
     al_e, be_e = e3(v, 10)
+    n_e, w_e = cpr.chain(p0, pa)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         e2(v, r)
         e3(v, 10)
+        cpr.chain(p0, pa)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         y_g, ss_g = e2(v, r)
         al_g, be_g = e3(v, 10)
+        n_g, w_g = cpr.chain(p0, pa)
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(y_g, y_e) and torch.equal(ss_g, ss_e)
         assert torch.equal(al_g, al_e) and torch.equal(be_g, be_e)
+        assert torch.equal(n_g, n_e) and torch.equal(w_g, w_e)
 
 
 @pytest.mark.parametrize("mode", cbd.MODES)
