@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8]
+    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9]
                           [--ghost-tol X]
 
 ``--ghost-tol`` replaces ``ops.bs_chain._GHOST_TOL`` for the run: phase 4
@@ -16,7 +16,7 @@ nonzero without a result line):
 1. build the CUDA kernels from ``dmft_lanc_ed_tpu_torch/csrc`` (one nvcc
    per source, all started together; each one's seconds and warnings are
    printed, and ptxas's C7515, wgmma serialized, fails the phase), while
-   the host ARPACK oracle of phases 2-7 runs in a thread.
+   the host ARPACK oracles of phases 2-7 and 9 run in a thread.
 2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag, B1 the
    per-call matvec, trimmed and whole-window) against its plain PyTorch
    version at the 854k-state (6,6) sector of nbath = 11, with the
@@ -49,14 +49,16 @@ nonzero without a result line):
    B1b, then the mixed top-off and f64 polish): |dE| <= 1e-10 vs ARPACK,
    and both B1 forms must launch.
 4. ``run_dmft`` of the one-orbital Bethe-lattice Hubbard model at
-   nbath = 11, T = 0, 2 loops, on the card, sectors one by one
-   (``ed_batch_sectors=False``); every chain kernel must launch in it,
-   every chain seed must reach its eta_target (``seed_counts``), outputs
-   must be finite, 0 <= dens <= 2, and loop 1's Egs must equal phase 3's
-   energy to 1e-9; the chains each B4 launch carried are printed.
+   nbath = 11, T = 0, one loop (the full sector scan), on the card,
+   sectors one by one (``ed_batch_sectors=False``); every chain kernel
+   must launch in it, every chain seed must reach its eta_target
+   (``seed_counts``), outputs must be finite, 0 <= dens <= 2, and loop
+   1's Egs must equal phase 3's energy to 1e-9; the chains each B4 launch
+   carried are printed.
 5. the default configuration: phase 4 with ``ed_backend="auto"`` and
    ``ed_batch_sectors`` left at True (small sectors solved in batched
-   buckets); at least one bucket solved, every chain kernel launched,
+   buckets), 2 loops (loop 2 the restricted scan around loop 1's ground
+   state); at least one bucket solved, every chain kernel launched,
    loop 1's energies of every Krylov sector equal phase 4's to
    1e-9 x max(1, |E|), loop 1's Egs equal phase 3's to 1e-9, outputs
    finite, 0 <= dens <= 2.
@@ -102,6 +104,26 @@ nonzero without a result line):
    two kernel launches a step). Times come from
    ``experiments.timing.device_ms``, which holds the stream while the
    host enqueues, so they are device time without the host's.
+9. the hybrid and replica baths with the off-diagonal GF, at 853,776
+   states: (a) hybrid10-854k, one ``EDSolver.solve`` of a hybrid bath
+   (norb = 2, nbath = 10, off-diagonal hloc) restricted to the sector
+   (6,6), one state: Egs against host ARPACK of that sector (1e-10), B2,
+   B3 and B4 launched, each B4 launch carrying the 3 chains of its target
+   (c+_0, c+_1 and the mixed c+_0 + c+_1), the mixed chain into (7,6)
+   through B4 against the true-f32 plain chain (G(iw) 2e-5, phase 2's
+   gate), the pole weights of each off-diagonal channel summing to 0 and
+   of each diagonal one to 1 (1e-9; an exact identity of any chain),
+   G_01 == G_10, Sigma finite; (b) bhz5-replica, ``models.bhz_2d.run_dmft``
+   (norb = 2, nspin = 2, nbath = 5, a replica bath over the 4 symmetries
+   of the BHZ hloc, nk = 20) in the default configuration, one loop: its
+   Egs against host ARPACK of the ground-state sector (1e-9), every chain
+   seed at its eta_target, B2, B3 and B4 launched, every B4 launch
+   carrying more than one chain, the pole-weight identities, 0 <= dens <=
+   2, Sigma finite, a finite fitted bath of the replica layout; the
+   loop's diag / gf / fit seconds, the launches, steps and chains per B4
+   launch, and the (6,6) op's window and B2/B3 tile are printed. The
+   chain kernels' launches and steps of the kernel line are those of
+   phases 4, 5 and 9.
 
 The line before the last is the kernel table as JSON. Each kernel's bound
 is the larger of its FP32 operations over 67 TFLOP/s and its bytes, each
@@ -112,8 +134,8 @@ and E3 count their split-bf16 products at the 989 TFLOP/s dense bf16
 tensor-core peak (three passes, E3's 1pass one over the same bytes; the
 rest FP32), B1, B4, B5 and E1 their six passes there.
 A chain kernel's
-``launches`` are chain launches and its ``steps`` the steps they ran; its
-``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
+``launches`` are chain launches and its ``steps`` the steps they ran
+(phases 4, 5 and 9 for B2-B4); its ``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
@@ -346,7 +368,7 @@ def sector_854k(sqn=(HALF, HALF)):
     return _SECTORS[sqn]
 
 
-def host_ground_state(h, sec):
+def host_ground_state(h, sec, label=""):
     """Host ARPACK ground state of the assembled CSR (bench.py's oracle)."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spl
@@ -364,7 +386,8 @@ def host_ground_state(h, sec):
                        sp.identity(sec.dim_up, format="csr"))
              + sp.diags(np.asarray(h.diag, np.float64).ravel())).tocsr()
     w, v = spl.eigsh(hfull, k=1, which="SA", tol=1e-13)
-    say(f"host ARPACK: E0 = {w[0]:+.12f} ({time.perf_counter() - t0:.1f} s)")
+    say(f"host ARPACK{label}: E0 = {w[0]:+.12f} "
+        f"({time.perf_counter() - t0:.1f} s)")
     return float(w[0]), v[:, 0]
 
 
@@ -373,26 +396,42 @@ def _tridiag_eigs(al, be):
     return np.linalg.eigh(t)
 
 
-def _physical_gf_chain(v_gs, e0, m, g_cf):
-    """B4 on the main path's own chain: c^+_up |GS> in the (HALF+1, HALF)
-    target sector -> (its op, the padded start [1, ddp, dup], G(iw) of the
+# the frequencies on which the GF chains' G(iw) are compared
+GF_Z = 1j * np.linspace(0.05, 3.0, 20)
+
+
+def g_cf(al, be, shift=0.0):
+    """G(iw) on GF_Z of a chain's alpha, beta, poles shifted by `shift`."""
+    th, s = _tridiag_eigs(al, be)
+    return (s[0] ** 2 / (GF_Z[:, None] - (th - shift))).sum(1)
+
+
+def _gf_chain_vs_plain(op_j, vv, e0, m):
+    """B4 on one chain from the natural-order start vv (normalized here)
+    in op_j's sector -> (the padded start [1, ddp, dup], G(iw) of the
     kernel, of the six-pass plain version and of the true-f32 plain
-    version, poles shifted by E0)."""
-    import dmft_lanc_ed_tpu_torch as pt
-    from dmft_lanc_ed_tpu_torch.gf import apply_op
+    version, poles shifted by e0)."""
     from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
     from dmft_lanc_ed_tpu_torch.ops.blocksparse import _hv_plain, to_padded
-    cfg, sec_j, _, op_j = sector_854k((HALF + 1, HALF))
-    sec_i = pt.SectorTable(cfg).sector(pt.qn(HALF, HALF))
-    vv = apply_op(cfg, sec_i, sec_j, v_gs, 0, 0, True)
     vv = vv / np.linalg.norm(vv)
-    vp = to_padded(op_j, vv.reshape(1, sec_j.dim_dw, sec_j.dim_up))
+    vp = to_padded(op_j, vv.reshape(1, op_j.dim_dw, op_j.dim_up))
     gs = []
     for al, be in (bc.gf_tridiag_call(op_j, vp, m),
                    bc.gf_tridiag_batch_plain(op_j.pop, vp, m),
                    bc.tridiag_chain_plain(op_j.pop, vp, m, hv=_hv_plain)):
         gs.append(g_cf(al[0].cpu().numpy(), be[0].cpu().numpy(), e0))
-    return (op_j, vp, *gs)
+    return (vp, *gs)
+
+
+def _physical_gf_chain(v_gs, e0, m):
+    """B4 on the main path's own chain: c^+_up |GS> in the (HALF+1, HALF)
+    target sector -> (its op, and _gf_chain_vs_plain's results)."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.gf import apply_op
+    cfg, sec_j, _, op_j = sector_854k((HALF + 1, HALF))
+    sec_i = pt.SectorTable(cfg).sector(pt.qn(HALF, HALF))
+    vv = apply_op(cfg, sec_i, sec_j, v_gs, 0, 0, True)
+    return (op_j, *_gf_chain_vs_plain(op_j, vv, e0, m))
 
 
 def phase2(op, e0, v_gs):
@@ -542,11 +581,6 @@ def phase2(op, e0, v_gs):
     al_p, be_p = bc.gf_tridiag_batch_plain(pop, vb, m)
     al_k, be_k = al_k.cpu().numpy(), be_k.cpu().numpy()
     al_p, be_p = al_p.cpu().numpy(), be_p.cpu().numpy()
-    z = 1j * np.linspace(0.05, 3.0, 20)
-
-    def g_cf(al, be, shift=0.0):
-        th, s = _tridiag_eigs(al, be)
-        return (s[0] ** 2 / (z[:, None] - (th - shift))).sum(1)
     err_ab = err_g = err_g200 = 0.0
     for i in range(nb):
         scale = max(1.0, np.abs(al_p[i]).max())
@@ -568,7 +602,7 @@ def phase2(op, e0, v_gs):
     # G(iw) with poles shifted by E0 as the solver forms them, against the
     # true-f32 plain version (2e-5, the f32 GF contract) and, printed, the
     # six-pass plain version; B4's row is timed on this chain
-    op_j, vp, g_k, g_6, g_f = _physical_gf_chain(v_gs, e0, m, g_cf)
+    op_j, vp, g_k, g_6, g_f = _physical_gf_chain(v_gs, e0, m)
     d_f = float(np.abs(g_k - g_f).max())
     say(f"B4 on c+|GS> in ({HALF + 1},{HALF}) padded {op_j.padded_shape}, "
         f"m={m}: max|dG(iw)| vs the true-f32 plain version {d_f:.3e} (tol "
@@ -785,11 +819,11 @@ def phase3b(cfg, sec, op, e0):
     return counts, dt
 
 
-def _dmft_cfg(**kw):
-    """Phase 4's DMFT configuration: nbath = 11, T = 0, 2 loops."""
+def _dmft_cfg(nloop, **kw):
+    """Phases 4 and 5's DMFT configuration: nbath = 11, T = 0."""
     import dmft_lanc_ed_tpu_torch as pt
     return pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,), beta=100.0,
-                       lmats=1024, lfit=256, lreal=64, nloop=2,
+                       lmats=1024, lfit=256, lreal=64, nloop=nloop,
                        ed_sectors=True, **kw)
 
 
@@ -840,7 +874,7 @@ def _run_loop(name, cfg, e_gs):
 
 def phase4(e_gs):
     """Sectors one by one, through the band-sparse backend."""
-    return _run_loop("phase 4", _dmft_cfg(ed_backend="pallas",
+    return _run_loop("phase 4", _dmft_cfg(1, ed_backend="pallas",
                                           ed_batch_sectors=False), e_gs)
 
 
@@ -849,7 +883,7 @@ def phase5(e_gs, serial):
     sectors); loop 1's Krylov sectors against phase 4's serial solves of
     the same bath (both loops start from init_bath)."""
     from dmft_lanc_ed_tpu_torch.ops import batched as bt
-    cfg = _dmft_cfg()
+    cfg = _dmft_cfg(2)
     if cfg.ed_backend != "auto" or not cfg.ed_batch_sectors:
         raise AssertionError("phase 5 must run the default configuration")
     bt.reset_bucket_counts()
@@ -1259,9 +1293,220 @@ def phase7(e0, e_gs):
     return {"sharded_matvec": sum(o["b5_b"] for o in out)}
 
 
+# phase 9: the hybrid and replica baths at the 854k sector
+P9_HLOC = ((0.0, 0.15), (0.15, 0.1))
+BHZ = dict(nk=20, m0=1.0, lam=0.3, t=0.5)   # the driver's own defaults
+# loop 1's ground state of bhz5-replica lies in (5,7) and (7,5) (measured
+# on an H100 by this phase): its ARPACK runs beside the build, another
+# sector's after the loop
+P9B_GS = (HALF - 1, HALF + 1)
+P9_POLE_TOL = 1e-9
+
+
+def _p9a_model():
+    """(cfg, hloc) of hybrid10-854k: a hybrid bath, nbath = 10, the off-
+    diagonal hloc, restricted to the sector (6,6) and one state."""
+    import dmft_lanc_ed_tpu_torch as pt
+    cfg = pt.EDConfig(norb=2, nbath=10, bath_type="hybrid", uloc=(2.0, 2.0),
+                      ust=1.0, jh=0.5, beta=100.0, lmats=1024, lreal=64,
+                      ed_backend="pallas", ed_sectors=True,
+                      ed_sectors_shift=0, lanc_nstates_sector=1)
+    hloc = np.zeros((1, 1, 2, 2))
+    hloc[0, 0] = P9_HLOC
+    return cfg, hloc
+
+
+def _p9b_model():
+    """(cfg, hloc, h_basis, lambda_imp) of bhz5-replica: the BHZ driver's
+    replica bath at nbath = 5 in the default configuration, one loop."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.dmft.hk import hk_bhz_2d, hloc_from_hk
+    cfg = pt.EDConfig(norb=2, nspin=2, nbath=5, bath_type="replica",
+                      uloc=(2.0, 2.0), ust=1.0, jh=0.5, beta=100.0,
+                      lmats=1024, lfit=256, lreal=64, nloop=1,
+                      ed_sectors=True)
+    hloc = hloc_from_hk(hk_bhz_2d(BHZ["nk"], m0=BHZ["m0"], lam=BHZ["lam"],
+                                  t=BHZ["t"]), 2, 2)
+    basis, lam = pt.decompose_hloc(cfg, hloc)
+    return cfg, hloc, basis, lam
+
+
+def _sector_h(cfg, hloc, bath, sqn, h_basis=None):
+    import dmft_lanc_ed_tpu_torch as pt
+    sec = pt.SectorTable(cfg).sector(sqn)
+    return pt.build_sector_hamiltonian(cfg, sec, hloc, bath,
+                                       h_basis=h_basis), sec
+
+
+def phase9_oracles():
+    """Phase 9's host side, run in phase 1's thread: ARPACK of the hybrid
+    (6,6) sector and of the BHZ P9B_GS sector at their initial baths (the
+    baths the solves take), and the BHZ (6,6) op's padded shape and
+    windows, built on the host."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import build_blocksparse_op
+    out = {}
+    cfg, hloc = _p9a_model()
+    h, sec = _sector_h(cfg, hloc, pt.init_bath(cfg), pt.qn(HALF, HALF))
+    out["hybrid"] = host_ground_state(h, sec, " hybrid10 (6,6)")[0]
+    cfg, hloc, basis, lam = _p9b_model()
+    bath = pt.init_bath(cfg, lam, basis)
+    h, sec = _sector_h(cfg, hloc, bath, pt.qn(*P9B_GS), basis)
+    out["bhz"] = host_ground_state(h, sec, f" bhz5 {P9B_GS}")[0]
+    h, _ = _sector_h(cfg, hloc, bath, pt.qn(HALF, HALF), basis)
+    pop = build_blocksparse_op(h, "cpu").pop
+    out["bhz_op"] = (pop.padded_shape, pop.w_dw, pop.w_up)
+    return out
+
+
+def _pole_sums(gf):
+    """(max |sum of weights - 1| over the diagonal channels, max |sum| over
+    the off-diagonal ones, the off-diagonal channels)."""
+    diag = [abs(gp.weights.sum() - 1.0) for (s, a, b), gp
+            in gf.channels.items() if a == b]
+    off = [abs(gp.weights.sum()) for (s, a, b), gp in gf.channels.items()
+           if a != b]
+    return max(diag), max(off, default=np.inf), len(off)
+
+
+def _chain_counts():
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    return (dict(bc.launch_counts), dict(bc.step_counts),
+            dict(bc.seed_counts), list(bc.chains_per_launch["gf_tridiag"]))
+
+
+def phase9a(e_ref):
+    """hybrid10-854k: one restricted solve, gated against host ARPACK,
+    then its mixed chain against the true-f32 plain chain."""
+    import torch
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.gf import HCache, apply_op
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    cfg, hloc = _p9a_model()
+    solver = pt.EDSolver(cfg, hloc, device=DEVICE)
+    solver.diag_state.sector_hint = [pt.qn(HALF, HALF)]
+    packed = solver.init_bath()
+    bc.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solver.solve(packed)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, steps, seeds, chains = _chain_counts()
+    st = res.state_list.states[0]
+    de = abs(res.state_list.emin - e_ref)
+    d_diag, d_off, n_off = _pole_sums(res.gf)
+    sym = np.array_equal(res.g_mats[0, 0, 0, 1], res.g_mats[0, 0, 1, 0])
+    say(f"phase 9(a) hybrid10-854k: sector {st.qn}, Egs "
+        f"{res.state_list.emin:+.12f}, |dE| vs ARPACK {de:.3e} (gate "
+        f"1e-10); {dt:.2f} s (diag {res.timings['diag']:.2f} s, gf "
+        f"{res.timings['gf']:.2f} s); launches {counts}, steps {steps}, "
+        f"chain seeds {seeds}, chains of each B4 launch {chains}, gf "
+        f"routing {res.gf.routing}; pole-weight sums: diagonal |1 - sum| "
+        f"{d_diag:.3e}, {n_off} off-diagonal |sum| {d_off:.3e} (tol "
+        f"{P9_POLE_TOL:g}); G_01 == G_10: {sym}; max|G_01(iw)| "
+        f"{float(np.abs(res.g_mats[0, 0, 0, 1]).max()):.3e}")
+    if not de <= 1e-10:
+        raise AssertionError("hybrid10-854k misses the ARPACK energy")
+    if any(v <= 0 for v in counts.values()):
+        raise AssertionError(f"a chain kernel never launched: {counts}")
+    if not (chains and all(c == 3 for c in chains)):
+        raise AssertionError(f"B4 launches did not carry 3 chains: {chains}")
+    if not (d_diag <= P9_POLE_TOL and d_off <= P9_POLE_TOL and n_off == 2):
+        raise AssertionError("the pole-weight identities fail")
+    if not (sym and np.all(np.isfinite(res.sigma_mats))
+            and np.all(np.isfinite(res.sigma_real))):
+        raise AssertionError("G_01 != G_10 or Sigma not finite")
+    # the mixed chain (c+_0 + c+_1)|GS> into (7,6) against the f32 chain
+    table = solver.table
+    jqn = table.cdg_sector(st.qn, 0, 0)
+    sec_i, sec_j = table.sector(st.qn), table.sector(jqn)
+    bath = pt.unpack_bath(cfg, packed)
+    op_j, _ = HCache(cfg, table, hloc, bath, device=DEVICE)(jqn)
+    vv = (apply_op(cfg, sec_i, sec_j, st.vec, 0, 0, True)
+          + apply_op(cfg, sec_i, sec_j, st.vec, 1, 0, True))
+    _, g_k, g_6, g_f = _gf_chain_vs_plain(op_j, vv, st.e, cfg.lanc_ngfiter)
+    d_f = float(np.abs(g_k - g_f).max())
+    say(f"  B4 on (c+_0 + c+_1)|GS> in {jqn} padded {op_j.padded_shape}, "
+        f"m={cfg.lanc_ngfiter}: max|dG(iw)| vs the true-f32 plain version "
+        f"{d_f:.3e} (tol 2e-5), vs the six-pass plain version "
+        f"{float(np.abs(g_k - g_6).max()):.3e}, max|G| "
+        f"{float(np.abs(g_f).max()):.3e}")
+    if not d_f <= 2e-5:
+        raise AssertionError("B4 on the mixed chain misses the f32 GF "
+                             "contract")
+    return counts, steps, dt
+
+
+def phase9b(oracle):
+    """bhz5-replica: the BHZ driver's loop 1 in the default configuration,
+    gated against host ARPACK of its ground-state sector."""
+    import torch
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch import _kernels
+    from dmft_lanc_ed_tpu_torch.models import bhz_2d
+    cfg, hloc, basis, lam = _p9b_model()
+    if cfg.ed_backend != "auto" or not cfg.ed_batch_sectors:
+        raise AssertionError("phase 9(b) must run the default configuration")
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    bc.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bhz_2d.run_dmft(cfg, device=DEVICE, verbose=False, **BHZ)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, steps, seeds, chains = _chain_counts()
+    ent = res.history[0]
+    states = ent["state_list"].states
+    gs = min(states, key=lambda s: s.e)
+    init = pt.pack_bath(cfg, pt.init_bath(cfg, lam, basis))
+    if ent["bath"].tobytes() != init.tobytes():
+        raise AssertionError("loop 1 did not start from init_bath")
+    if any(s.qn == pt.qn(*P9B_GS) for s in states):
+        sqn, e_ref = pt.qn(*P9B_GS), oracle["bhz"]
+    else:
+        sqn = gs.qn
+        h, sec = _sector_h(cfg, hloc, pt.unpack_bath(cfg, init, len(lam)),
+                           sqn, basis)
+        e_ref = host_ground_state(h, sec, f" bhz5 {sqn}")[0]
+    de = abs(ent["egs"] - e_ref)
+    d_diag, d_off, n_off = _pole_sums(ent["gf_data"])
+    (ddp, dup), w_dw, w_up = oracle["bhz_op"]
+    tile = _kernels.lib().bs_chain_tc_tile(ddp, dup, 1, 2)
+    say(f"phase 9(b) bhz5-replica: run_dmft nbath={cfg.nbath} nk="
+        f"{BHZ['nk']}, {len(basis)} symmetries, 1 loop in {dt:.1f} s: diag "
+        f"{ent['diag']:.2f} s, gf {ent['gf']:.2f} s, fit {ent['fit']:.2f} "
+        f"s; {len(states)} states in {sorted({s.qn for s in states})}, Egs "
+        f"{ent['egs']:+.12f}, sector {sqn} ARPACK {e_ref:+.12f}, |dE| "
+        f"{de:.3e} (gate 1e-9); dens {ent['dens']}")
+    say(f"  launches {counts}, steps {steps}, chain seeds {seeds}, chains "
+        f"of each B4 launch {chains}, gf routing {ent['routing']}; "
+        f"pole-weight sums: diagonal |1 - sum| {d_diag:.3e}, {n_off} "
+        f"off-diagonal |sum| {d_off:.3e} (tol {P9_POLE_TOL:g}); (6,6) "
+        f"padded {ddp} x {dup}, window W_dw {w_dw}, W_up {w_up}, B2/B3 "
+        f"tile 64 x {tile}")
+    if not de <= 1e-9:
+        raise AssertionError("bhz5-replica misses the ARPACK energy")
+    if seeds["missed"] > 0 or seeds["reached"] <= 0:
+        raise AssertionError(f"a chain seed missed its eta_target: {seeds}")
+    if any(v <= 0 for v in counts.values()):
+        raise AssertionError(f"a chain kernel never launched: {counts}")
+    if not (chains and min(chains) > 1):
+        raise AssertionError(f"a B4 launch carried one chain: {chains}")
+    if not (d_diag <= P9_POLE_TOL and d_off <= P9_POLE_TOL and n_off == 4):
+        raise AssertionError("the pole-weight identities fail")
+    if not np.all((res.dens >= 0) & (res.dens <= 2)):
+        raise AssertionError(f"dens out of range: {res.dens}")
+    if not (np.all(np.isfinite(res.sigma_mats))
+            and np.all(np.isfinite(res.sigma_real))):
+        raise AssertionError("Sigma not finite")
+    if not (len(res.bath) == pt.bath_dimension(cfg, len(basis))
+            and np.all(np.isfinite(res.bath))):
+        raise AssertionError("the replica fit returned a bad bath")
+    return counts, steps, dt
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,2s,3,3b,4,5,6,7,8")
+    ap.add_argument("--phases", default="0,1,2,2s,3,3b,4,5,6,7,8,9")
     ap.add_argument("--ghost-tol", type=float, default=None)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1288,20 +1533,21 @@ def main():
             bs_chain._GHOST_TOL = args.ghost_tol
         rows, counts, steps = [], {}, {}
         e_gs = serial = None
-        e0 = oracle = None
+        e0 = arpack = p9_oracle = None
+        # the host oracles run in a thread while nvcc builds
+        oracle = ThreadPoolExecutor(1)
         on_854k = phases & {"2", "2s", "3", "3b", "6", "7", "8"}
         if on_854k:
             cfg, sec, h, op = sector_854k()
             if phases & {"2", "3", "3b", "7"}:
-                # the host oracle runs in a thread while nvcc builds
-                oracle = ThreadPoolExecutor(1)
                 arpack = oracle.submit(host_ground_state, h, sec)
+        if "9" in phases:
+            p9_oracle = oracle.submit(phase9_oracles)
         if "1" in phases:
             phase1()
         if on_854k:
-            if oracle is not None:
+            if arpack is not None:
                 e0, v_gs = arpack.result()
-                oracle.shutdown()
             if "2" in phases:
                 rows = phase2(op, e0, v_gs)
             b2_steps = {}
@@ -1332,6 +1578,15 @@ def main():
                     tot[k] = tot.get(k, 0) + n
         if "7" in phases:
             counts.update(phase7(e0, e_gs))
+        if "9" in phases:
+            p9 = p9_oracle.result()
+            t9 = time.perf_counter()
+            for c9, s9, _ in (phase9a(p9["hybrid"]), phase9b(p9)):
+                for tot, add in ((counts, c9), (steps, s9)):
+                    for k, n in add.items():
+                        tot[k] = tot.get(k, 0) + n
+            say(f"phase 9: {time.perf_counter() - t9:.1f} s")
+        oracle.shutdown()
     except Exception:
         traceback.print_exc()
         return 1

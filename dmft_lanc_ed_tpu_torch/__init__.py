@@ -18,10 +18,16 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .config import EDConfig, read_input, save_used_input  # noqa: E402
-from .bath import Bath, init_bath, pack_bath, unpack_bath  # noqa: E402
+from .bath import (  # noqa: E402
+    Bath, bath_dimension, init_bath, pack_bath, unpack_bath,
+    break_symmetry_bath, spin_symmetrize_bath, orb_symmetrize_bath,
+    orb_equality_bath, ph_symmetrize_bath, ph_trans_bath,
+    get_bath_component, set_bath_component, copy_bath_component,
+)
 from .sectors import Sector, SectorTable, qn  # noqa: E402
 from .hamiltonian import (SectorHamiltonian, build_sector_hamiltonian,  # noqa: E402
                           dense_hamiltonian)
+from .hloc import decompose_hloc, h_from_sym  # noqa: E402
 from .solver import EDSolver, SolveResult, matsubara_grid, real_grid  # noqa: E402
 from .fit import chi2_fitgf  # noqa: E402
 

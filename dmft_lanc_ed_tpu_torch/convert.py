@@ -18,10 +18,12 @@ from .hamiltonian import SectorHamiltonian
 _H_FIELDS = tuple(f.name for f in dataclasses.fields(SectorHamiltonian))
 
 
-def bath_from_reference(packed: np.ndarray, cfg: EDConfig) -> Bath:
+def bath_from_reference(packed: np.ndarray, cfg: EDConfig,
+                        nsym: Optional[int] = None) -> Bath:
     """The JAX package's packed bath (``pack_bath`` layout, identical in
-    both packages) -> the port's :class:`~.bath.Bath`."""
-    return unpack_bath(cfg, np.asarray(packed, np.float64))
+    both packages; any bath type, `nsym` checked against a replica
+    bath's N_dec) -> the port's :class:`~.bath.Bath`."""
+    return unpack_bath(cfg, np.asarray(packed, np.float64), nsym=nsym)
 
 
 def hamiltonian_from_reference(fields: Dict[str, Optional[np.ndarray]]

@@ -1,5 +1,5 @@
-"""Chi^2 bath fitting, normal bath (port of ``dmft_lanc_ed_tpu/fit.py``;
-reference ED_FIT_CHI2.f90 + fitgf_normal_normal.f90).
+"""Chi^2 bath fitting (port of ``dmft_lanc_ed_tpu/fit.py``; reference
+ED_FIT_CHI2.f90 + ED_FIT_CHI2/fitgf_*.f90).
 
 The exact gradient of
 
@@ -10,20 +10,30 @@ comes from torch autograd on complex128 CPU tensors and feeds
 (L-BFGS-B or CG, cg_grad, cg_stop/cg_ftol). The fit runs on the host
 because the JAX package pins it there (``@on_host``): it is a few hundred
 tiny evaluations, latency-bound. Weight W_n = 1, n, or w_n per cg_weight;
-cg_scheme "delta" fits Delta(z), "weiss" fits G0and(z). One independent
-fit per (spin, orbital) over (e_k, V_k). Hybrid and replica baths are not
-ported (ROADMAP A7).
+cg_scheme "delta" fits Delta(z), "weiss" fits G0and(z).
+
+Fit granularity matches the reference dispatch (ED_FIT_CHI2.f90:88-99):
+- normal : independent (spin, orbital) fits over (e_k, V_k)       [2 Nbath]
+- hybrid : per-spin joint fit over (e_k, V_{a k})                 [(1+Norb) Nbath]
+- replica: joint fit over (V_p, lambda_{p m}) with all orbital
+  components entering chi2 (fitgf_replica)
+
+The absolute value of the fitted V is taken after the minimization, as in
+the reference. The diagnostic fit_{weiss,delta} files are not written
+(ROADMAP A9a); ``outdir`` appends the chi2fit_results records.
 """
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 from scipy.optimize import minimize as _scipy_minimize
 
-from .bath import Bath, _require_normal, pack_bath, unpack_bath
+from .bath import Bath, pack_bath, unpack_bath
+from .bath_functions import delta_bath, g0and_bath
 from .config import EDConfig
 from .solver import matsubara_grid
 
@@ -55,45 +65,126 @@ def chi2_normal(cfg: EDConfig, theta: torch.Tensor, z: torch.Tensor,
     return (r / wgt).sum() / z.shape[0]
 
 
+def chi2_hybrid(cfg: EDConfig, theta: torch.Tensor, z: torch.Tensor,
+                target: torch.Tensor, wgt: torch.Tensor, h_ss
+                ) -> torch.Tensor:
+    """chi2 of one spin's joint hybrid-bath fit; theta = [e_k, V_ak
+    (orbital-major)], target [norb, norb, L], h_ss that spin's Hloc block;
+    the Weiss scheme inverts G0^-1 per frequency."""
+    nb, no = cfg.nbath, cfg.norb
+    ek = theta[:nb]
+    vk = theta[nb:].reshape(no, nb).to(torch.complex128)
+    inv = 1.0 / (z[:, None] - ek[None, :])                 # [L, nb]
+    d = torch.einsum("ak,bk,lk->abl", vk, vk, inv)
+    if cfg.cg_scheme == "weiss":
+        eye = torch.eye(no, dtype=torch.complex128)
+        h = torch.as_tensor(h_ss, dtype=torch.complex128)
+        ig0 = (z + cfg.xmu)[None, None, :] * eye[:, :, None] \
+            - h[:, :, None] - d
+        d = torch.linalg.inv(ig0.permute(2, 0, 1)).permute(1, 2, 0)
+    r = _cabs_pow(target - d, cfg.cg_pow)
+    return (r / wgt[None, None, :]).sum() / z.shape[0]
+
+
+def chi2_replica(cfg: EDConfig, theta: torch.Tensor, z: torch.Tensor,
+                 target: torch.Tensor, wgt: torch.Tensor, hloc, h_basis
+                 ) -> torch.Tensor:
+    """chi2 of the joint replica-bath fit; theta = [V_p,s (bath-major),
+    lambda_p,m (bath-major)], target [nspin, nspin, norb, norb, L], every
+    component entering."""
+    nb, nspin = cfg.nbath, cfg.nspin
+    nsym = np.asarray(h_basis).shape[0]
+    bath = Bath(v_rep=theta[:nb * nspin].reshape(nb, nspin),
+                lam=theta[nb * nspin:].reshape(nb, nsym))
+    if cfg.cg_scheme == "delta":
+        d = delta_bath(cfg, bath, z, h_basis)
+    else:
+        d = g0and_bath(cfg, hloc, bath, z, h_basis)
+    r = _cabs_pow(target - d, cfg.cg_pow)
+    return (r / wgt).sum() / z.shape[0]
+
+
 def chi2_fitgf(cfg: EDConfig, target: np.ndarray, bath_array: np.ndarray,
                hloc: np.ndarray, ispin: Optional[int] = None,
+               h_basis: Optional[np.ndarray] = None,
                outdir: Optional[str] = None, suffix: str = "") -> np.ndarray:
     """Fit the bath to the Weiss field / hybridization (ed_chi2_fitgf).
 
     target: [nspin, nspin, norb, norb, Lmats] on the fermionic Matsubara
-    grid. Returns the updated packed bath array. With ``outdir``, appends
-    the reference's ``chi2fit_results*<suffix>.ed`` records.
+    grid; h_basis: the replica bath's symmetry basis. Returns the updated
+    packed bath array. With ``outdir``, appends the reference's
+    ``chi2fit_results*<suffix>.ed`` records.
     """
-    _require_normal(cfg)
     wm_full = matsubara_grid(cfg)
     lfit = min(cfg.lfit, target.shape[-1], len(wm_full))
     wm = wm_full[:lfit]
     z = torch.as_tensor(1j * wm, dtype=torch.complex128)
     wgt = torch.as_tensor(_fit_weight(cfg, wm), dtype=torch.float64)
     spins = [ispin] if ispin is not None else list(range(cfg.nspin))
-    bath = unpack_bath(cfg, bath_array)
+    nsym = h_basis.shape[0] if h_basis is not None else None
+    bath = unpack_bath(cfg, bath_array, nsym=nsym)
     hloc = np.asarray(hloc, np.float64)
+    nb = cfg.nbath
     fit_log: List[Tuple[str, float, int]] = []
-    e, v = bath.e.copy(), bath.v.copy()
-    for s in spins:
-        for a in range(cfg.norb):
-            tgt = torch.as_tensor(np.asarray(target[s, s, a, a, :lfit]),
-                                  dtype=torch.complex128)
 
-            def chi2(theta, tgt=tgt, h_aa=float(hloc[s, s, a, a])):
-                return chi2_normal(cfg, theta, z, tgt, wgt, h_aa)
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.complex128)
 
-            theta0 = np.concatenate([e[s, a], v[s, a]])
+    if cfg.bath_type == "normal":
+        e, v = bath.e.copy(), bath.v.copy()
+        for s in spins:
+            for a in range(cfg.norb):
+                tgt = tensor(target[s, s, a, a, :lfit])
+
+                def chi2(theta, tgt=tgt, h_aa=float(hloc[s, s, a, a])):
+                    return chi2_normal(cfg, theta, z, tgt, wgt, h_aa)
+
+                theta0 = np.concatenate([e[s, a], v[s, a]])
+                theta, chi, nit = _minimize(cfg, chi2, theta0)
+                fit_log.append((f"_orb{a + 1}_s{s + 1}{suffix}", chi, nit))
+                e[s, a] = theta[:nb]
+                v[s, a] = np.abs(theta[nb:])
+        new_bath = Bath(e=e, v=v)
+    elif cfg.bath_type == "hybrid":
+        e, v = bath.e.copy(), bath.v.copy()
+        for s in spins:
+            tgt = tensor(target[s, s, :, :, :lfit])
+
+            def chi2(theta, tgt=tgt, h_ss=hloc[s, s]):
+                return chi2_hybrid(cfg, theta, z, tgt, wgt, h_ss)
+
+            theta0 = np.concatenate([e[s, 0], v[s].reshape(-1)])
             theta, chi, nit = _minimize(cfg, chi2, theta0)
-            fit_log.append((f"_orb{a + 1}_s{s + 1}{suffix}", chi, nit))
-            e[s, a] = theta[:cfg.nbath]
-            v[s, a] = np.abs(theta[cfg.nbath:])
+            fit_log.append((f"_ALLorb_s{s + 1}{suffix}", chi, nit))
+            e[s, 0] = theta[:nb]
+            v[s] = np.abs(theta[nb:].reshape(cfg.norb, nb))
+        new_bath = Bath(e=e, v=v)
+    else:
+        tgt = tensor(target[..., :lfit])
+
+        def chi2(theta):
+            return chi2_replica(cfg, theta, z, tgt, wgt, hloc, h_basis)
+
+        theta0 = np.concatenate([bath.v_rep.reshape(-1),
+                                 bath.lam.reshape(-1)])
+        theta, chi, nit = _minimize(cfg, chi2, theta0)
+        fit_log.append((suffix, chi, nit))
+        nv = nb * cfg.nspin
+        new_bath = Bath(v_rep=np.abs(theta[:nv].reshape(nb, cfg.nspin)),
+                        lam=theta[nv:].reshape(nb, -1))
     if outdir is not None:
         for file_sfx, chi, nit in fit_log:
             with open(os.path.join(outdir, f"chi2fit_results{file_sfx}.ed"),
                       "a") as fh:
                 fh.write(f"{chi:18.9E} {nit:5d}\n")
-    return pack_bath(cfg, Bath(e=e, v=v))
+    return pack_bath(cfg, new_bath)
+
+
+def replica_chi2_fitgf(cfg: EDConfig, target: np.ndarray,
+                       bath_array: np.ndarray, hloc: np.ndarray,
+                       h_basis: np.ndarray) -> np.ndarray:
+    """Convenience alias matching the reference's fitgf_replica entry."""
+    return chi2_fitgf(cfg, target, bath_array, hloc, h_basis=h_basis)
 
 
 class _StopWatcher:
@@ -137,13 +228,26 @@ def value_and_grad(chi2_fn: Callable, t: np.ndarray) -> Tuple[float,
     return float(val.detach()), grad.numpy().astype(np.float64)
 
 
+@contextmanager
+def _one_thread():
+    """One intra-op thread for the fit's tensors of a few kilobytes: the
+    pool's hand-offs cost more than the work (a replica fit's evaluation
+    several times slower at 8 threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _minimize(cfg: EDConfig, chi2_fn: Callable,
               theta0: np.ndarray) -> Tuple[np.ndarray, float, int]:
     """Quasi-Newton descent on the chi2 (the reference's dials:
     cg_method 0 -> L-BFGS-B, 1 -> CG; cg_grad 0 -> exact autograd
     gradient, 1 -> finite differences with step cg_minimize_hh;
-    cg_stop / cg_ftol via :class:`_StopWatcher`). Returns
-    (theta, chi2, niter)."""
+    cg_stop / cg_ftol via :class:`_StopWatcher`), on one intra-op
+    thread. Returns (theta, chi2, niter)."""
     numeric = cfg.cg_grad != 0
 
     def fval(t):
@@ -164,8 +268,10 @@ def _minimize(cfg: EDConfig, chi2_fn: Callable,
         method = "L-BFGS-B"
     if numeric:
         options["eps"] = cfg.cg_minimize_hh
-    res = _scipy_minimize(fun, theta0, jac=jac, method=method,
-                          callback=watcher, options=options)
-    theta = np.asarray(res.x)
+    with _one_thread():
+        res = _scipy_minimize(fun, theta0, jac=jac, method=method,
+                              callback=watcher, options=options)
+        theta = np.asarray(res.x)
+        chi = fval(theta)
     nit = int(getattr(res, "nit", watcher.nit) or watcher.nit)
-    return theta, fval(theta), nit
+    return theta, chi, nit

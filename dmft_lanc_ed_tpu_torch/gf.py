@@ -20,8 +20,11 @@ The tiny tridiagonal eigenproblems run on host LAPACK. Conventions as in
 the reference: pole contribution peso/(z - isign*(lambda_j - E_i)),
 peso = norm2 * Z(1,j)^2 * boltzmann/Z (add_to_lanczos_gf_normal).
 
-Only the diagonal GF of the normal bath is ported: the off-diagonal GF and
-``build_gf_full`` raise (ROADMAP A6).
+The off-diagonal GF (``ed_solve_offdiag_gf``, and every hybrid or replica
+bath) queues the mixed vectors (c_a + c_b)|psi> into the same target
+sectors as the diagonal ones, so a target's diagonal and mixed chains run
+in one batch, and recombines G_ab = 1/2 (G_mix - G_aa - G_bb) pole by pole
+(ED_GF_NORMAL.f90:82-98, :347-588). ``build_gf_full`` raises (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -236,15 +239,20 @@ class _ExcBatcher:
 
 
 def _queue_excitation(cfg, table, batcher: _ExcBatcher, st, iorb, ispin,
-                      create, peso, gf: GFPoles) -> None:
+                      create, peso, gf: GFPoles, op_vec=None,
+                      jqn_override=None) -> None:
+    """Queue c^{(+)}_{iorb,ispin}|psi>, or the given `op_vec` in the
+    sector `jqn_override`, normalized once; a zero vector (norm^2 <
+    1e-28) adds no chain."""
     isign = +1 if create else -1
     iud = iorb if table.ns_ud > 1 else 0
-    jqn = (table.cdg_sector(st.qn, iud, ispin) if create
-           else table.c_sector(st.qn, iud, ispin))
+    jqn = jqn_override or (table.cdg_sector(st.qn, iud, ispin) if create
+                           else table.c_sector(st.qn, iud, ispin))
     if jqn is None:
         return
-    vv = apply_op(cfg, table.sector(st.qn), table.sector(jqn), st.vec, iorb,
-                  ispin, create)
+    vv = np.asarray(op_vec) if op_vec is not None else apply_op(
+        cfg, table.sector(st.qn), table.sector(jqn), st.vec, iorb, ispin,
+        create)
     norm2 = float(np.vdot(vv, vv).real)
     if norm2 < 1e-28:
         return
@@ -253,12 +261,11 @@ def _queue_excitation(cfg, table, batcher: _ExcBatcher, st, iorb, ispin,
 
 def build_gf_normal(cfg: EDConfig, table: SectorTable, hcache: HCache,
                     state_list: StateList) -> GFData:
-    """Diagonal electron GF (build_gf_normal), batched by target sector."""
-    if cfg.ed_solve_offdiag_gf or cfg.bath_type != "normal":
-        raise NotImplementedError("the off-diagonal GF is not ported yet "
-                                  "(ROADMAP A6)")
+    """Diagonal (and off-diagonal) electron GF (build_gf_normal), batched
+    by target sector."""
     gf = GFData()
     weights, zeta = state_list.boltzmann_weights(cfg.beta, cfg.finite_t)
+    offdiag = cfg.ed_solve_offdiag_gf or cfg.bath_type != "normal"
     batcher = _ExcBatcher(cfg, hcache)
     for w_s, st in zip(weights, state_list.states):
         if cfg.finite_t and cfg.beta * (st.e - state_list.emin) >= 200:
@@ -271,9 +278,55 @@ def build_gf_normal(cfg: EDConfig, table: SectorTable, hcache: HCache,
                                   True, peso, ch)
                 _queue_excitation(cfg, table, batcher, st, iorb, ispin,
                                   False, peso, ch)
+        if offdiag:
+            _queue_gf_offdiag(cfg, table, batcher, st, peso, gf)
     batcher.run()
     gf.routing = batcher.routing
+    if offdiag:
+        _recombine_offdiag(cfg, gf)
     return gf
+
+
+def _queue_gf_offdiag(cfg, table, batcher, st, peso, gf: GFData) -> None:
+    """Mixed-operator channels (c_a + c_b)|psi> for a < b
+    (ED_GF_NORMAL.f90:347-588), queued under the channel (s, a, b)."""
+    sec_i = table.sector(st.qn)
+    for ispin in range(cfg.nspin):
+        targets = {}
+        for create in (True, False):
+            jqn = (table.cdg_sector(st.qn, 0, ispin) if create
+                   else table.c_sector(st.qn, 0, ispin))
+            if jqn is not None:
+                sec_j = table.sector(jqn)
+                targets[create] = jqn, [
+                    apply_op(cfg, sec_i, sec_j, st.vec, a, ispin, create)
+                    for a in range(cfg.norb)]
+        for a in range(cfg.norb):
+            for b in range(a + 1, cfg.norb):
+                for create, (jqn, vecs) in targets.items():
+                    _queue_excitation(cfg, table, batcher, st, a, ispin,
+                                      create, peso, gf.get((ispin, a, b)),
+                                      op_vec=vecs[a] + vecs[b],
+                                      jqn_override=jqn)
+
+
+def _recombine_offdiag(cfg: EDConfig, gf: GFData) -> None:
+    """G_ab <- 1/2 (G_mix - G_aa - G_bb) pole-wise, G_ba = G_ab
+    (ED_GF_NORMAL.f90:82-98)."""
+    for ispin in range(cfg.nspin):
+        for a in range(cfg.norb):
+            for b in range(a + 1, cfg.norb):
+                mix = gf.channels.get((ispin, a, b))
+                if mix is None:
+                    continue
+                gaa = gf.get((ispin, a, a))
+                gbb = gf.get((ispin, b, b))
+                new = GFPoles()
+                new.add(0.5 * mix.weights, mix.poles)
+                new.add(-0.5 * gaa.weights, gaa.poles)
+                new.add(-0.5 * gbb.weights, gbb.poles)
+                gf.channels[(ispin, a, b)] = new
+                gf.channels[(ispin, b, a)] = new   # symmetric
 
 
 def build_gf_full(cfg: EDConfig, table: SectorTable,
@@ -282,14 +335,22 @@ def build_gf_full(cfg: EDConfig, table: SectorTable,
                               "ported yet (ROADMAP A6)")
 
 
-def build_sigma(cfg: EDConfig, hloc, bath: Bath, gf: GFData, z: np.ndarray
-                ) -> Tuple[np.ndarray, np.ndarray]:
+def build_sigma(cfg: EDConfig, hloc, bath: Bath, gf: GFData, z: np.ndarray,
+                h_basis=None) -> Tuple[np.ndarray, np.ndarray]:
     """Dyson self-energy (build_sigma_normal, ED_GF_NORMAL.f90:935-1002):
-    returns (Sigma, G) on the given frequency points, reference layout."""
+    returns (Sigma, G) on the given frequency points, reference layout.
+    With off-diagonal channels (a hybrid or replica bath, or
+    ``ed_solve_offdiag_gf``) Sigma = G0^-1 - G^-1 per spin as [norb, norb]
+    matrices, inverted on the host."""
     g = gf.evaluate(cfg, z)
-    ig0 = invg0_bath(cfg, hloc, bath, z).numpy()
+    ig0 = invg0_bath(cfg, hloc, bath, z, h_basis).numpy()
     sigma = np.zeros_like(g)
-    for s in range(cfg.nspin):
-        for a in range(cfg.norb):
-            sigma[s, s, a, a] = ig0[s, s, a, a] - 1.0 / g[s, s, a, a]
+    if cfg.bath_type == "normal" and not cfg.ed_solve_offdiag_gf:
+        for s in range(cfg.nspin):
+            for a in range(cfg.norb):
+                sigma[s, s, a, a] = ig0[s, s, a, a] - 1.0 / g[s, s, a, a]
+    else:
+        for s in range(cfg.nspin):
+            inv = np.linalg.inv(g[s, s].transpose(2, 0, 1))
+            sigma[s, s] = ig0[s, s] - inv.transpose(1, 2, 0)
     return sigma, g

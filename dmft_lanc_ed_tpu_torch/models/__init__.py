@@ -1,1 +1,1 @@
-"""Model drivers of the PyTorch port (only hm_bethe so far, ROADMAP A8)."""
+"""Model drivers of the PyTorch port (hm_bethe and bhz_2d so far, ROADMAP A8)."""

@@ -12,8 +12,10 @@ on the solver's ``device`` — the card unless the caller asks for
 to the CPU. The sector operators and Krylov chains live there; the sector
 tables, eigenstates, GF poles and frequency-grid math
 live on the host. Frequency grids match allocate_grids
-(ED_AUX_FUNX.f90:278-304). Susceptibilities and phonons are not ported
-(ROADMAP A6) and raise.
+(ED_AUX_FUNX.f90:278-304): wm = pi/beta (2n+1), wr = linspace(wini, wfin),
+tau = [0, beta]. A replica bath takes the symmetry basis `h_basis` and the
+impurity's coefficients `lambda_imp` (``hloc.decompose_hloc``).
+Susceptibilities and phonons are not ported (ROADMAP A6) and raise.
 """
 from __future__ import annotations
 
@@ -44,8 +46,17 @@ def matsubara_grid(cfg: EDConfig) -> np.ndarray:
     return np.pi / cfg.beta * (2 * n + 1)
 
 
+def bosonic_grid(cfg: EDConfig) -> np.ndarray:
+    n = np.arange(cfg.lmats)
+    return np.pi / cfg.beta * (2 * n)
+
+
 def real_grid(cfg: EDConfig) -> np.ndarray:
     return np.linspace(cfg.wini, cfg.wfin, cfg.lreal)
+
+
+def tau_grid(cfg: EDConfig) -> np.ndarray:
+    return np.linspace(0.0, cfg.beta, cfg.ltau)
 
 
 @dataclass
@@ -67,7 +78,8 @@ class EDSolver:
     """One impurity solver instance (`ed_init_solver` + `ed_solve`)."""
 
     def __init__(self, cfg: EDConfig, hloc: Optional[np.ndarray] = None,
-                 device="cuda"):
+                 h_basis: Optional[np.ndarray] = None,
+                 lambda_imp: Optional[np.ndarray] = None, device="cuda"):
         if cfg.chispin_flag or cfg.chidens_flag or cfg.dim_ph > 1:
             raise NotImplementedError("susceptibilities and phonons are not "
                                       "ported yet (ROADMAP A6)")
@@ -77,6 +89,8 @@ class EDSolver:
         nso = (cfg.nspin, cfg.nspin, cfg.norb, cfg.norb)
         self.hloc = np.zeros(nso) if hloc is None else np.asarray(
             hloc, dtype=np.float64)
+        self.h_basis = h_basis          # replica symmetry basis
+        self.lambda_imp = lambda_imp
         self.diag_state = DiagState(
             lanc_nstates_total=cfg.lanc_nstates_total)
         self.wm = matsubara_grid(cfg)
@@ -85,12 +99,15 @@ class EDSolver:
 
     def init_bath(self) -> np.ndarray:
         """Default bath guess as packed user array (ed_init_solver output)."""
-        return pack_bath(self.cfg, init_bath(self.cfg))
+        return pack_bath(self.cfg, init_bath(
+            self.cfg, lambda_imp=self.lambda_imp, h_basis=self.h_basis))
 
     def solve(self, bath) -> SolveResult:
         cfg = self.cfg
         t_all = time.perf_counter()
-        bath = unpack_bath(cfg, np.asarray(bath))
+        nsym = self.h_basis.shape[0] if self.h_basis is not None else None
+        bath = unpack_bath(cfg, np.asarray(bath), nsym=nsym)
+        h_basis = self.h_basis
         timings = {}
 
         def synced_time():
@@ -100,13 +117,15 @@ class EDSolver:
 
         t0 = synced_time()
         state_list = diagonalize_impurity(cfg, self.table, self.hloc, bath,
-                                          self.diag_state, device=self.device)
+                                          self.diag_state, device=self.device,
+                                          h_basis=h_basis)
         timings["diag"] = synced_time() - t0
         log.info("diag: %d states, Egs=%.12f (%.2fs)", state_list.size,
                  state_list.emin, timings["diag"])
 
         t0 = synced_time()
-        hcache = HCache(cfg, self.table, self.hloc, bath, device=self.device)
+        hcache = HCache(cfg, self.table, self.hloc, bath, device=self.device,
+                        h_basis=h_basis)
         gf = build_gf_normal(cfg, self.table, hcache, state_list)
         timings["gf"] = synced_time() - t0
 
@@ -118,10 +137,12 @@ class EDSolver:
         t0 = time.perf_counter()
         zmats = 1j * self.wm
         zreal = self.wr + 1j * cfg.eps
-        sigma_mats, g_mats = build_sigma(cfg, self.hloc, bath, gf, zmats)
-        sigma_real, g_real = build_sigma(cfg, self.hloc, bath, gf, zreal)
-        g0_mats = g0and_bath(cfg, self.hloc, bath, zmats).numpy()
-        g0_real = g0and_bath(cfg, self.hloc, bath, zreal).numpy()
+        sigma_mats, g_mats = build_sigma(cfg, self.hloc, bath, gf, zmats,
+                                         h_basis)
+        sigma_real, g_real = build_sigma(cfg, self.hloc, bath, gf, zreal,
+                                         h_basis)
+        g0_mats = g0and_bath(cfg, self.hloc, bath, zmats, h_basis).numpy()
+        g0_real = g0and_bath(cfg, self.hloc, bath, zreal, h_basis).numpy()
         timings["sigma"] = time.perf_counter() - t0
         obs.zimp, obs.simp = zimp_simp(cfg, sigma_mats, self.wm)
         timings["total"] = time.perf_counter() - t_all
@@ -154,3 +175,17 @@ class EDSolver:
 
     def get_docc(self):
         return self.last_result.observables.docc
+
+    def get_mag(self):
+        return self.last_result.observables.mag
+
+    def get_eimp(self):
+        o = self.last_result.observables
+        return np.array([o.epot, o.eint, o.ehartree, o.eknot])
+
+    def get_doubles(self):
+        o = self.last_result.observables
+        return np.array([o.dust, o.dund, o.dse, o.dph])
+
+    def get_imp_dm(self):
+        return self.last_result.observables.imp_dm

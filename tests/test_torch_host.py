@@ -170,9 +170,9 @@ def test_config_cli_values_parse_like_the_input_file():
 
 
 def test_unported_options_raise():
-    cfg = pt.read_input(None, norb=1, nbath=3, bath_type="hybrid")
-    with pytest.raises(NotImplementedError):          # hybrid baths
-        pt.init_bath(cfg)
+    cfg = pt.read_input(None, norb=1, nbath=3, chispin_flag=True)
+    with pytest.raises(NotImplementedError):          # susceptibilities
+        pt.EDSolver(cfg, device="cpu")
     cfg = pt.read_input(None, norb=1, nbath=3, lanc_dim_threshold=4)
     for bad in (dict(),                               # auto: ELL on the CPU
                 dict(ed_backend="ell"), dict(ed_backend="direct"),

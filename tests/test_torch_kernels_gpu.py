@@ -207,6 +207,41 @@ def test_gf_tridiag_batch_equals_each_chain_alone(cuda, nbath, sqn, nb):
         assert torch.equal(al_b[i], al_1[0]) and torch.equal(be_b[i], be_1[0])
 
 
+def test_gf_tridiag_diagonal_and_mixed_chains_replica(cuda):
+    """B4 on one GF target's batch of a replica bath (norb = 2, nbath = 3,
+    the (4,4) target of 4,900 states): c+_0 v, c+_1 v and the mixed
+    (c+_0 + c+_1) v in one launch, against the plain version; each chain's
+    bits equal the chain run alone, and reruns are bit-identical."""
+    from dmft_lanc_ed_tpu_torch.gf import apply_op
+    cfg = pt.read_input(None, norb=2, nbath=3, bath_type="replica",
+                        uloc=(2.0, 2.0), ust=1.0, jh=0.5)
+    hloc = np.zeros((1, 1, 2, 2))
+    hloc[0, 0] = [[0.2, 0.1], [0.1, -0.2]]
+    basis, lam = pt.decompose_hloc(cfg, hloc)
+    bath = pt.init_bath(cfg, lam, basis)
+    table = pt.SectorTable(cfg)
+    sec_i, sec_j = table.sector(pt.qn(3, 4)), table.sector(pt.qn(4, 4))
+    h = pt.build_sector_hamiltonian(cfg, sec_j, hloc, bath, h_basis=basis)
+    op = build_blocksparse_op(h, cuda)
+    v = np.random.default_rng(4).standard_normal(sec_i.dim)
+    c = [apply_op(cfg, sec_i, sec_j, v, a, 0, True) for a in (0, 1)]
+    vs = np.stack([c[0], c[1], c[0] + c[1]])
+    vs /= np.linalg.norm(vs, axis=1)[:, None]
+    vb = to_padded(op, vs.reshape(3, op.dim_dw, op.dim_up))
+    bc.reset_launch_counts()
+    al_b, be_b = bc.gf_tridiag_call(op, vb, 48)
+    assert bc.chains_per_launch["gf_tridiag"] == [3]
+    al_r, be_r = bc.gf_tridiag_call(op, vb, 48)
+    assert torch.equal(al_b, al_r) and torch.equal(be_b, be_r)
+    for i in range(3):
+        al_1, be_1 = bc.gf_tridiag_call(op, vb[i:i + 1].contiguous(), 48)
+        assert torch.equal(al_b[i], al_1[0]) and torch.equal(be_b[i], be_1[0])
+    al_p, be_p = bc.gf_tridiag_batch_plain(op.pop, vb, 48)
+    scale = max(1.0, float(al_p.abs().max()))
+    assert float((al_b[:, :8] - al_p[:, :8]).abs().max()) < 5e-5 * scale
+    assert float((be_b[:, :8] - be_p[:, :8]).abs().max()) < 5e-5 * scale
+
+
 def test_kernel_wrappers_refuse_bad_inputs(cuda):
     op = _op(cuda, 6, (3, 3))
     v0 = _starts(op, 1)[0]
