@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9]
+    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9,10]
                           [--ghost-tol X]
 
 ``--ghost-tol`` replaces ``ops.bs_chain._GHOST_TOL`` for the run: phase 4
@@ -16,7 +16,7 @@ nonzero without a result line):
 1. build the CUDA kernels from ``dmft_lanc_ed_tpu_torch/csrc`` (one nvcc
    per source, all started together; each one's seconds and warnings are
    printed, and ptxas's C7515, wgmma serialized, fails the phase), while
-   the host ARPACK oracles of phases 2-7 and 9 run in a thread.
+   the host ARPACK oracles of phases 2-7, 9 and 10 run in a thread.
 2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag, B1 the
    per-call matvec, trimmed and whole-window) against its plain PyTorch
    version at the 854k-state (6,6) sector of nbath = 11, with the
@@ -121,9 +121,29 @@ nonzero without a result line):
    carrying more than one chain, the pole-weight identities, 0 <= dens <=
    2, Sigma finite, a finite fitted bath of the replica layout; the
    loop's diag / gf / fit seconds, the launches, steps and chains per B4
-   launch, and the (6,6) op's window and B2/B3 tile are printed. The
-   chain kernels' launches and steps of the kernel line are those of
-   phases 4, 5 and 9.
+   launch, and the (6,6) op's window and B2/B3 tile are printed.
+10. the three-orbital Kanamori driver at 853,776 states:
+   ``models.multiorb_kanamori.run_dmft`` at its main() model (norb = 3,
+   uloc 2.5, ust 1.5, jh 0.5, Jx = Jp = 0, no crystal field) with nbath =
+   3, so that the half-filled (6,6) sector holds 924^2 states, T = 0, one
+   loop, in the default configuration (``ed_backend="auto"``, batched
+   small sectors): the (6,6) sector band-sparse (its ACA-separable
+   diagonal; its windows, diagonal rank and trim share printed, the op
+   built on the host in phase 1's thread), every sector above
+   ``ed_batch_dim_max`` through the chain seed and every seed at its
+   eta_target, B2, B3 and B4 launched, at least one bucket solved; the
+   lowest (6,6) energy of the solve's ``diag_log`` against host ARPACK of
+   that sector at the same initial bath (1e-10); outputs finite, 0 <= dens
+   <= 2, the three orbitals' dens and docc equal to 1e-6;
+   ``timings["kernel_matvecs"]`` at least the chain steps of the loop;
+   then ``io.write_all`` and the loop's fit again with its diagnostic
+   files into a temporary directory: ``read_gf_files`` gives back
+   Sigma(iw) to 1e-8 (9 decimals written), ``EDSolver.restore`` the fitted
+   bath to 1e-11 (12 decimals) and a ``neigen_sector`` equal to the state
+   list's per-sector counts. The loop's diag / gf / fit seconds and the
+   phase's are printed beside the card's name and power limit. The chain
+   kernels' launches and steps of the kernel line are those of phases 4,
+   5, 9 and 10.
 
 The line before the last is the kernel table as JSON. Each kernel's bound
 is the larger of its FP32 operations over 67 TFLOP/s and its bytes, each
@@ -135,7 +155,7 @@ tensor-core peak (three passes, E3's 1pass one over the same bytes; the
 rest FP32), B1, B4, B5 and E1 their six passes there.
 A chain kernel's
 ``launches`` are chain launches and its ``steps`` the steps they ran
-(phases 4, 5 and 9 for B2-B4); its ``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
+(phases 4, 5, 9 and 10 for B2-B4); its ``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
@@ -191,6 +211,9 @@ PEAK_BYTES = 3.35e12      # bytes/s, H100 SXM HBM3
 # ~10x that; the gates leave a 4x margin
 P7_G_TOL = 2e-5
 P7_SIGMA_TOL = 2e-4
+# the card's name and power limit as nvidia-smi gives them (phase 0),
+# printed beside the phases' seconds
+CARD = "card not read"
 
 
 def say(*a):
@@ -318,7 +341,9 @@ def phase0():
                          text=True, timeout=60)
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    say(smi.stdout.strip())
+    global CARD
+    CARD = smi.stdout.strip()
+    say(CARD)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     if not torch.cuda.is_available():
@@ -1504,9 +1529,151 @@ def phase9b(oracle):
     return counts, steps, dt
 
 
+# phase 10: the three-orbital Kanamori driver at the 854k sector
+P10_NBATH = 3             # Ns = 3 x (1 + 3) = 12: (6,6) holds 853,776 states
+
+
+def _p10_model():
+    """(cfg, hloc) of kanamori3-854k: multiorb_kanamori's main() model (norb
+    3, uloc 2.5, ust 1.5, jh 0.5, Jx = Jp = 0, no crystal field) at nbath =
+    3, T = 0, one loop, in the default configuration."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.models.multiorb_kanamori import DEFAULTS
+    cfg = pt.EDConfig(nbath=P10_NBATH, beta=100.0, lmats=1024, lfit=256,
+                      lreal=64, nloop=1, **DEFAULTS)
+    return cfg, np.zeros((1, 1, cfg.norb, cfg.norb))
+
+
+def phase10_oracle():
+    """Phase 10's host side, run in phase 1's thread: ARPACK of the (6,6)
+    sector at the initial bath (the bath loop 1 takes), and that sector's
+    band-sparse op built on the host: applicability, padded shape,
+    windows, diagonal rank and trim share."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import (
+        blocksparse_applicable, build_blocksparse_op, trim_share)
+    cfg, hloc = _p10_model()
+    h, sec = _sector_h(cfg, hloc, pt.init_bath(cfg), pt.qn(HALF, HALF))
+    e0 = host_ground_state(h, sec, " kanamori3 (6,6)")[0]
+    pop = build_blocksparse_op(h, "cpu").pop
+    return dict(e0=e0, dim=sec.dim, applicable=blocksparse_applicable(h),
+                shape=pop.padded_shape, w_dw=pop.w_dw, w_up=pop.w_up,
+                rank=pop.diag_a.shape[1], trim=trim_share(pop))
+
+
+def phase10(oracle):
+    """kanamori3-854k: multiorb_kanamori.run_dmft's loop 1 in the default
+    configuration, gated against host ARPACK of (6,6); then write_all and
+    the fit's diagnostic files into a temporary directory, read back and
+    restored."""
+    import tempfile
+    import torch
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch import _kernels
+    from dmft_lanc_ed_tpu_torch import io as edio
+    from dmft_lanc_ed_tpu_torch.fit import chi2_fitgf
+    from dmft_lanc_ed_tpu_torch.models import multiorb_kanamori
+    from dmft_lanc_ed_tpu_torch.ops import batched as bt
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    cfg, hloc = _p10_model()
+    if cfg.ed_backend != "auto" or not cfg.ed_batch_sectors:
+        raise AssertionError("phase 10 must run the default configuration")
+    t_all = time.perf_counter()
+    bc.reset_launch_counts()
+    bt.reset_bucket_counts()
+    t0 = time.perf_counter()
+    res = multiorb_kanamori.run_dmft(cfg, device=DEVICE, verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, steps, seeds, chains = _chain_counts()
+    buckets = dict(bt.bucket_counts)
+    ent = res.history[0]
+    r1 = ent["result"]
+    table = pt.SectorTable(cfg)
+    log66 = [e for q, e, _ in ent["diag_log"] if q == pt.qn(HALF, HALF)]
+    e66 = float(np.min(log66[0])) if log66 else float("nan")
+    de = abs(e66 - oracle["e0"])
+    large = [q for q, _, k in ent["diag_log"]
+             if k and table.dim(q) > cfg.ed_batch_dim_max]
+    states = r1.state_list.states
+    mv = ent["timings"]["kernel_matvecs"]
+    n_steps = sum(steps.values())
+    (ddp, dup) = oracle["shape"]
+    tile = _kernels.lib().bs_chain_tc_tile(ddp, dup, 1, 2)
+    say(f"phase 10 kanamori3-854k: multiorb_kanamori.run_dmft norb=3 "
+        f"nbath={cfg.nbath}, 1 loop in {dt:.1f} s ({CARD}): diag "
+        f"{ent['diag']:.2f} s, gf {ent['gf']:.2f} s, fit {ent['fit']:.2f} "
+        f"s; {len(states)} states in {sorted({s.qn for s in states})}, Egs "
+        f"{ent['egs']:+.12f}; (6,6) dim {oracle['dim']} lowest "
+        f"{e66:+.12f}, ARPACK {oracle['e0']:+.12f}, |dE| {de:.3e} (gate "
+        f"1e-10)")
+    say(f"  (6,6) band-sparse: applicable {oracle['applicable']}, padded "
+        f"{ddp} x {dup}, window W_dw {oracle['w_dw']}, W_up "
+        f"{oracle['w_up']}, diagonal rank {oracle['rank']}, trim share "
+        f"{oracle['trim']:.3f}, B2/B3 tile 64 x {tile}")
+    say(f"  launches {counts}, steps {steps}, chain seeds {seeds} over "
+        f"{len(large)} band-sparse sectors, chains of each B4 launch "
+        f"{chains}, gf routing {ent['routing']}, batched {buckets}; "
+        f"kernel_matvecs {mv} (chain steps {n_steps}), kernel_nnz_applied "
+        f"{ent['timings']['kernel_nnz_applied']}; dens {ent['dens']}, docc "
+        f"{ent['docc']}")
+    if not oracle["applicable"]:
+        raise AssertionError("the (6,6) sector is not band-sparse")
+    if not de <= 1e-10:
+        raise AssertionError("kanamori3-854k (6,6) misses the ARPACK energy")
+    if any(v <= 0 for v in counts.values()):
+        raise AssertionError(f"a chain kernel never launched: {counts}")
+    if seeds["missed"] > 0 or seeds["reached"] < len(large):
+        raise AssertionError(f"a large sector missed the chain seed or its "
+                             f"eta_target: {seeds}, {len(large)} sectors")
+    if buckets["buckets"] <= 0:
+        raise AssertionError("no batched bucket was solved")
+    if not (ent["routing"][0] > 0 and chains):
+        raise AssertionError("no GF chain ran through B4")
+    if not mv >= n_steps > 0:
+        raise AssertionError("kernel_matvecs below the chain steps")
+    dens, docc = np.asarray(ent["dens"]), np.asarray(ent["docc"])
+    if not np.all((dens >= 0) & (dens <= 2)):
+        raise AssertionError(f"dens out of range: {dens}")
+    if not (np.ptp(dens) <= 1e-6 and np.ptp(docc) <= 1e-6):
+        raise AssertionError("the degenerate orbitals' dens/docc differ")
+    outs = [res.sigma_mats, res.sigma_real, res.g_mats, res.weiss, res.bath]
+    if not all(np.all(np.isfinite(x)) for x in outs):
+        raise AssertionError("non-finite DMFT output")
+    # the files: write_all and the loop's fit again with its diagnostics
+    with tempfile.TemporaryDirectory() as d:
+        edio.write_all(cfg, r1, res.bath, outdir=d)
+        refit = chi2_fitgf(cfg, res.weiss, ent["bath"], hloc, outdir=d)
+        names = sorted(os.listdir(d))
+        back = edio.read_gf_files(cfg, "impSigma", outdir=d)
+        d_sig = float(np.abs(back - r1.sigma_mats).max())
+        solver = pt.EDSolver(cfg, hloc, device=DEVICE)
+        bath_r = solver.restore(d)
+        d_bath = float(np.abs(bath_r - res.bath).max())
+        per_sector = {}
+        for st in states:
+            per_sector[st.qn] = per_sector.get(st.qn, 0) + 1
+    fit_files = [n for n in names if n.startswith(("fit_weiss",
+                                                   "chi2fit_results"))]
+    say(f"  files: {len(names)} written ({len(fit_files)} of the fit); "
+        f"impSigma read back max|d| {d_sig:.3e} (tol 1e-8, 9 decimals); "
+        f"restored bath max|d| {d_bath:.3e} (tol 1e-11, 12 decimals); "
+        f"neigen_sector {solver.diag_state.neigen_sector}; the refit equals "
+        f"the loop's bath: {refit.tobytes() == res.bath.tobytes()}")
+    if len(fit_files) != 2 * cfg.norb:
+        raise AssertionError(f"the fit's diagnostic files: {fit_files}")
+    if not (d_sig <= 1e-8 and d_bath <= 1e-11):
+        raise AssertionError("the written files do not read back")
+    if solver.diag_state.neigen_sector != per_sector:
+        raise AssertionError("restore's neigen_sector differs from the "
+                             "state list")
+    say(f"phase 10: {time.perf_counter() - t_all:.1f} s ({CARD})")
+    return counts, steps, dt
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,2s,3,3b,4,5,6,7,8,9")
+    ap.add_argument("--phases", default="0,1,2,2s,3,3b,4,5,6,7,8,9,10")
     ap.add_argument("--ghost-tol", type=float, default=None)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1533,7 +1700,7 @@ def main():
             bs_chain._GHOST_TOL = args.ghost_tol
         rows, counts, steps = [], {}, {}
         e_gs = serial = None
-        e0 = arpack = p9_oracle = None
+        e0 = arpack = p9_oracle = p10_oracle = None
         # the host oracles run in a thread while nvcc builds
         oracle = ThreadPoolExecutor(1)
         on_854k = phases & {"2", "2s", "3", "3b", "6", "7", "8"}
@@ -1543,6 +1710,8 @@ def main():
                 arpack = oracle.submit(host_ground_state, h, sec)
         if "9" in phases:
             p9_oracle = oracle.submit(phase9_oracles)
+        if "10" in phases:
+            p10_oracle = oracle.submit(phase10_oracle)
         if "1" in phases:
             phase1()
         if on_854k:
@@ -1586,6 +1755,11 @@ def main():
                     for k, n in add.items():
                         tot[k] = tot.get(k, 0) + n
             say(f"phase 9: {time.perf_counter() - t9:.1f} s")
+        if "10" in phases:
+            c10, s10, _ = phase10(p10_oracle.result())
+            for tot, add in ((counts, c10), (steps, s10)):
+                for k, n in add.items():
+                    tot[k] = tot.get(k, 0) + n
         oracle.shutdown()
     except Exception:
         traceback.print_exc()

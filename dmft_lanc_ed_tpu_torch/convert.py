@@ -1,8 +1,9 @@
 """Carry the JAX package's state across to the port's objects.
 
-Both functions take plain numpy arrays (as the JAX package's objects give
-them with ``np.asarray``) and never import the JAX package, so tests can
-feed both packages the same bath and the same sector Hamiltonian.
+The functions take plain numpy arrays, or objects read attribute by
+attribute through ``np.asarray`` (as the JAX package's objects give them),
+and never import the JAX package, so tests can feed both packages the same
+bath, the same sector Hamiltonian and the same solve result.
 """
 from __future__ import annotations
 
@@ -13,7 +14,11 @@ import numpy as np
 
 from .bath import Bath, unpack_bath
 from .config import EDConfig
+from .eigenspace import EigenState, StateList
+from .gf import GFData, GFPoles
 from .hamiltonian import SectorHamiltonian
+from .observables import Observables
+from .solver import SolveResult
 
 _H_FIELDS = tuple(f.name for f in dataclasses.fields(SectorHamiltonian))
 
@@ -37,3 +42,40 @@ def hamiltonian_from_reference(fields: Dict[str, Optional[np.ndarray]]
     return SectorHamiltonian(**{
         k: None if fields.get(k) is None else np.array(fields[k])
         for k in _H_FIELDS})
+
+
+def _host(x):
+    """A field as the JAX package holds it -> numpy (None and Python
+    scalars kept as they are)."""
+    if x is None or isinstance(x, (int, float, complex)):
+        return x
+    return np.array(x)
+
+
+def result_from_reference(res) -> SolveResult:
+    """The JAX package's ``SolveResult`` (read attribute by attribute) ->
+    the port's :class:`~.solver.SolveResult` with the same arrays: the six
+    GF / Sigma arrays, every ``Observables`` field, the state list (its
+    states' sectors, energies and vectors, ``diag_log``, capacity and
+    clean-cut flag), the GF poles and the timings. The JAX package's
+    susceptibility fields are not carried (the port's result has none
+    until ROADMAP A6)."""
+    obs = Observables(**{f.name: _host(getattr(res.observables, f.name))
+                         for f in dataclasses.fields(Observables)})
+    sl = res.state_list
+    states = StateList(max_size=sl.max_size, clean_cut=sl.clean_cut)
+    states.states = [EigenState(tuple(tuple(int(n) for n in half)
+                                      for half in st.qn),
+                                float(st.e), np.array(st.vec, np.float64),
+                                bool(st.twin)) for st in sl.states]
+    states.diag_log = [(tuple(tuple(int(n) for n in half) for half in q),
+                        np.array(e, np.float64), bool(k))
+                       for q, e, k in sl.diag_log]
+    gf = GFData(channels={tuple(int(i) for i in c): GFPoles(
+        np.array(p.weights, np.float64), np.array(p.poles, np.float64))
+        for c, p in res.gf.channels.items()})
+    arrays = {k: np.array(getattr(res, k)) for k in (
+        "sigma_mats", "sigma_real", "g_mats", "g_real", "g0_mats",
+        "g0_real")}
+    return SolveResult(observables=obs, state_list=states, gf=gf,
+                       timings=dict(res.timings), **arrays)

@@ -19,8 +19,10 @@ Fit granularity matches the reference dispatch (ED_FIT_CHI2.f90:88-99):
   components entering chi2 (fitgf_replica)
 
 The absolute value of the fitted V is taken after the minimization, as in
-the reference. The diagnostic fit_{weiss,delta} files are not written
-(ROADMAP A9a); ``outdir`` appends the chi2fit_results records.
+the reference. With ``outdir`` the fit writes the reference's diagnostic
+files, in the JAX package's formats: the appended chi2fit_results records
+and the per-channel fit_{weiss,delta} files (target beside fitted
+function).
 """
 from __future__ import annotations
 
@@ -112,8 +114,13 @@ def chi2_fitgf(cfg: EDConfig, target: np.ndarray, bath_array: np.ndarray,
 
     target: [nspin, nspin, norb, norb, Lmats] on the fermionic Matsubara
     grid; h_basis: the replica bath's symmetry basis. Returns the updated
-    packed bath array. With ``outdir``, appends the reference's
-    ``chi2fit_results*<suffix>.ed`` records.
+    packed bath array.
+
+    When ``outdir`` is given, writes the reference's fit diagnostics:
+    ``chi2fit_results*<suffix>.ed`` (appended chi^2 | iterations per fit,
+    fitgf_normal_normal.f90:147-152) and ``fit_{weiss,delta}*<suffix>.ed``
+    (target vs fitted function, :186-205). ``suffix`` is the per-site
+    ``ed_file_suffix`` analogue (e.g. ``_ineq0001``).
     """
     wm_full = matsubara_grid(cfg)
     lfit = min(cfg.lfit, target.shape[-1], len(wm_full))
@@ -174,10 +181,62 @@ def chi2_fitgf(cfg: EDConfig, target: np.ndarray, bath_array: np.ndarray,
                         lam=theta[nv:].reshape(nb, -1))
     if outdir is not None:
         for file_sfx, chi, nit in fit_log:
-            with open(os.path.join(outdir, f"chi2fit_results{file_sfx}.ed"),
-                      "a") as fh:
-                fh.write(f"{chi:18.9E} {nit:5d}\n")
+            _write_chi2_results(outdir, file_sfx, chi, nit)
+        if cfg.cg_scheme == "delta":
+            fgand = delta_bath(cfg, new_bath, z, h_basis)
+        else:
+            fgand = g0and_bath(cfg, hloc, new_bath, z, h_basis)
+        _write_fit_functions(cfg, outdir, suffix, wm,
+                             np.asarray(target[..., :lfit]), fgand.numpy(),
+                             spins)
     return pack_bath(cfg, new_bath)
+
+
+def _write_fit_functions(cfg: EDConfig, outdir: str, suffix: str,
+                         wm: np.ndarray, fg: np.ndarray, fgand: np.ndarray,
+                         spins) -> None:
+    """Per-channel fit_{weiss,delta} files, matching the reference's
+    per-bath-type suffix conventions (fitgf_normal_normal.f90:186-205,
+    fitgf_hybrid_normal.f90:197-217, fitgf_replica.f90:182-207)."""
+    if cfg.bath_type == "normal":
+        for s in spins:
+            for a in range(cfg.norb):
+                _write_fit_function(cfg, outdir, f"_orb{a + 1}_s{s + 1}{suffix}",
+                                    wm, fg[s, s, a, a], fgand[s, s, a, a])
+    elif cfg.bath_type == "hybrid":
+        for s in spins:
+            for a in range(cfg.norb):
+                for b in range(a, cfg.norb):
+                    _write_fit_function(cfg, outdir,
+                                        f"_l{a + 1}_m{b + 1}{suffix}",
+                                        wm, fg[s, s, a, b], fgand[s, s, a, b])
+    else:  # replica: every (spin-diagonal) component
+        for s in range(cfg.nspin):
+            for a in range(cfg.norb):
+                for b in range(cfg.norb):
+                    _write_fit_function(
+                        cfg, outdir,
+                        f"_l{a + 1}_m{b + 1}_s{s + 1}_r{s + 1}{suffix}",
+                        wm, fg[s, s, a, b], fgand[s, s, a, b])
+
+
+def _write_chi2_results(outdir: str, suffix: str, chi: float,
+                        niter: int) -> None:
+    """chi2fit_results<suffix>.ed append record (fitgf_normal_normal.f90:147)."""
+    with open(os.path.join(outdir, f"chi2fit_results{suffix}.ed"), "a") as fh:
+        fh.write(f"{chi:18.9E} {niter:5d}\n")
+
+
+def _write_fit_function(cfg: EDConfig, outdir: str, suffix: str,
+                        wm: np.ndarray, fg_ch: np.ndarray,
+                        fgand_ch: np.ndarray) -> None:
+    """fit_{weiss,delta}<suffix>.ed: 5F24.15 columns
+    (x, Im fg, Im fgand, Re fg, Re fgand) — fitgf_normal_normal.f90:186-205."""
+    name = "fit_weiss" if cfg.cg_scheme == "weiss" else "fit_delta"
+    with open(os.path.join(outdir, f"{name}{suffix}.ed"), "w") as fh:
+        for x, g, ga in zip(wm, fg_ch, fgand_ch):
+            fh.write(f"{x:24.15F}{g.imag:24.15F}{ga.imag:24.15F}"
+                     f"{g.real:24.15F}{ga.real:24.15F}\n")
 
 
 def replica_chi2_fitgf(cfg: EDConfig, target: np.ndarray,

@@ -44,6 +44,7 @@ from .ops.lanczos import lanczos_tridiag_batched, tridiag_eigh
 from .parallel.production import (ShardedSectorOp, apply_counts,
                                   shard_sector_op, should_shard, solver_mesh)
 from .sectors import Sector, SectorQN, SectorTable, op_map
+from .utils.observability import kernel_stats
 
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
 
@@ -208,6 +209,7 @@ class _ExcBatcher:
                 # over the ranks at each projection
                 n_scan += len(tasks)
                 apply_counts["gf_chains"] += len(tasks)
+                kernel_stats.record(m * len(tasks), sop.nnz)
                 v0 = sop.pad_flat_batch(vs).reshape(len(tasks), -1)
                 a_b, b_b = lanczos_tridiag_batched(
                     sop, v0, m, ShardedSectorOp.apply_flat,
@@ -220,6 +222,7 @@ class _ExcBatcher:
                     and gf_chain_applicable(op, m)):
                 # B4: every excitation of this target in one chain launch
                 n_chain += len(tasks)
+                kernel_stats.record(m * len(tasks), op.nnz)
                 a_b, b_b = gf_tridiag_batch(op, vs, m)
                 self._accumulate(tasks, a_b, b_b)
                 continue
@@ -227,6 +230,7 @@ class _ExcBatcher:
             for i0 in range(0, len(tasks), bmax):
                 chunk = tasks[i0:i0 + bmax]
                 n_scan += len(chunk)
+                kernel_stats.record(m * len(chunk), getattr(op, "nnz", 0))
                 v0 = torch.as_tensor(vs[i0:i0 + bmax], dtype=torch.float64,
                                      device=op.device)
                 a_b, b_b = lanczos_tridiag_batched(op, v0, m, op_apply)

@@ -60,15 +60,33 @@ class DMFTResult:
     history: List[Dict] = field(default_factory=list)
 
 
+def loop_entry(iloop: int, error: float, res, bath_in: np.ndarray,
+               t_fit: float, t0: float, **extra) -> Dict:
+    """A DMFT iteration's history entry: its error, dens, docc and Egs,
+    the solve's diag / gf seconds, ``timings`` (with the ``kernel_*``
+    counters) and GF routing (chain, scan), the fit's seconds, the packed
+    bath the solve took, the sector scan's ``diag_log`` (sector, energies,
+    Krylov-solved) and the seconds since `t0`, plus `extra`; loop 1's
+    also carries its solve's Sigma and G and the whole ``SolveResult``
+    (``result``)."""
+    entry = dict(iloop=iloop, error=error, dens=res.observables.dens.copy(),
+                 docc=res.observables.docc.copy(), egs=res.observables.egs,
+                 diag=res.timings["diag"], gf=res.timings["gf"], fit=t_fit,
+                 timings=dict(res.timings), routing=res.gf.routing,
+                 bath=bath_in, diag_log=res.state_list.diag_log,
+                 time=time.perf_counter() - t0, **extra)
+    if iloop == 1:
+        entry.update(sigma_mats=res.sigma_mats, g_mats=res.g_mats,
+                     result=res)
+    return entry
+
+
 def run_dmft(cfg: EDConfig, wband=1.0, h0=None, wmixing: float = 0.5,
              bethe_sc: bool = False, broyden: bool = False,
              n_energies: int = 500, bath0: Optional[np.ndarray] = None,
              verbose: bool = True, device="cuda") -> DMFTResult:
-    """Full DMFT loop (edn_hm_bethe.f90:104-167 behavior). Each history
-    entry also carries the iteration's diag / gf / fit seconds, the GF
-    routing (chain, scan), the packed bath its solve took, the sector
-    scan's ``diag_log`` (sector, energies, Krylov-solved), and (loop 1)
-    the solve's Sigma and G."""
+    """Full DMFT loop (edn_hm_bethe.f90:104-167 behavior); the history
+    entries are :func:`loop_entry`'s, with the loop's xmu."""
     norb = cfg.norb
     ebands, dbands, h0v = bethe_bands(norb, wband, h0, n_energies)
     hloc = np.zeros((cfg.nspin, cfg.nspin, norb, norb))
@@ -110,16 +128,8 @@ def run_dmft(cfg: EDConfig, wband=1.0, h0=None, wmixing: float = 0.5,
         if musearch is not None:
             xmu, converged = musearch.update(
                 xmu, float(res.observables.dens.sum()), converged)
-        entry = dict(iloop=iloop, error=conv.error,
-                     dens=res.observables.dens.copy(),
-                     docc=res.observables.docc.copy(),
-                     egs=res.observables.egs, xmu=xmu,
-                     diag=res.timings["diag"], gf=res.timings["gf"],
-                     fit=t_fit, routing=res.gf.routing, bath=bath_in,
-                     diag_log=res.state_list.diag_log,
-                     time=time.perf_counter() - t0)
-        if iloop == 1:
-            entry.update(sigma_mats=res.sigma_mats, g_mats=res.g_mats)
+        entry = loop_entry(iloop, conv.error, res, bath_in, t_fit, t0,
+                           xmu=xmu)
         history.append(entry)
         if verbose:
             log.info("DMFT loop %02d: err=%.3e dens=%s docc=%s (%.1fs)",

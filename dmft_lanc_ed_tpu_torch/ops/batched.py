@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.observability import kernel_stats
 from .dense import DenseSectorOp, matvec_dense, matvec_dense_mixed
 from .lanczos import _build_basis_rr, _ritz, refine_eigenpairs
 
@@ -159,6 +160,7 @@ def lanczos_ground_state_bucket(
         res = _build_basis_rr(lambda v: apply_nd(stacked, v), prefix,
                               theta0, v0, m, l, fast_proj=fast_proj)
         bucket_counts["restarts"] += 1
+        kernel_stats.record(b * (m - l), stacked.nnz_count // b)
         l = min(l_keep, m - 2)
         s_keep = np.zeros((b, m, l))
         theta_keep = np.zeros((b, l))

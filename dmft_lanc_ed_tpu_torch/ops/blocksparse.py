@@ -201,6 +201,8 @@ class BsPaddedOp:
     # (dw offsets, dw pairs, up offsets, up pairs) int32 (see _runs_table)
     runs_trim: Tuple = ()
     runs_full: Tuple = ()
+    # the sector Hamiltonian's nonzeros: what a matvec applies (counters)
+    nnz: int = 0
 
     @property
     def padded_shape(self) -> Tuple[int, int]:
@@ -349,7 +351,8 @@ def build_blocksparse_op(h: SectorHamiltonian, device) -> BlockSparseSectorOp:
         runs_trim=(*_runs_table(dw_runs, device),
                    *_runs_table(up_runs, device)),
         runs_full=(*_runs_table(full_dw, device),
-                   *_runs_table(full_up, device)))
+                   *_runs_table(full_up, device)),
+        nnz=h.nnz)
     i64 = torch.int64
     return BlockSparseSectorOp(
         pop=pop, perm_dw=put(perm_dw, i64), perm_up=put(perm_up, i64),

@@ -51,6 +51,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.observability import kernel_stats
 from .bf16x3 import (hv_plain, hv_plain3, split3_bf16, split3_op,
                      split_bf16, split_op)
 from .blocksparse import (BsPaddedOp, BlockSparseSectorOp, _check_cuda_inputs,
@@ -428,6 +429,7 @@ def tridiag_chain(op, v32p: torch.Tensor, m: int
     and beta_out the coupling out of the last vector (the Ritz residual
     scale). One chain launch; the host reads the results once."""
     al, be = tridiag_call(op, v32p, m)
+    kernel_stats.record(m, _pop(op).nnz)
     al = al.cpu().numpy()
     be_raw = be.cpu().numpy()
     betas = np.concatenate([[0.0], be_raw[:m - 1]])
@@ -440,7 +442,9 @@ def cheb_chain(op, v32p: torch.Tensor, m: int, c: float, e: float
     of m, normalized output (no host sync). Components inside [c-e, c+e]
     are damped to <= 1; those below c-e grow like
     cosh(K acosh((c-lam)/e)), so the ground state dominates."""
-    v, nrm = cheb_call(op, v32p, _bucket_k(m), c, 1.0 / e)
+    kk = _bucket_k(m)
+    v, nrm = cheb_call(op, v32p, kk, c, 1.0 / e)
+    kernel_stats.record(kk, _pop(op).nnz)
     return v / torch.clamp(nrm, min=1e-30).float()
 
 

@@ -34,6 +34,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.observability import kernel_stats
+
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
 
 _EPS = 1e-30
@@ -256,6 +258,7 @@ def lanczos_ground_state(
         res = _build_basis_rr(apply_b, prefix[None], theta0[None], v0[None],
                               m, l, fast_proj=fast_proj, reduce=reduce)
         restart_counts["ground_state"] += 1
+        kernel_stats.record(m - l, getattr(op, "nnz", 0))
         basis, beta_last = res.v_basis[0], float(res.beta_last[0])
         theta_np, s_np = _ritz(res.t_mat[0], m)
         resid = np.abs(beta_last * s_np[m - 1, :])

@@ -274,6 +274,7 @@ class ShardedBsOp:
     solver (its vectors are the rank's rows [local, dup])."""
     shard: BsShard
     mesh: DwMesh
+    nnz: int = 0          # the whole sector's nonzeros a matvec applies
 
     @property
     def device(self) -> torch.device:
@@ -298,7 +299,7 @@ def make_sharded_bs_matvec(op: BlockSparseSectorOp, mesh: DwMesh):
     ``_matvec_padded(op, v, 1.0)`` on the stitched vector; `sop` is the
     rank's :class:`ShardedBsOp`."""
     sop = ShardedBsOp(shard_bs_op(op, mesh.size, mesh.rank, mesh.device),
-                      mesh)
+                      mesh, op.nnz)
 
     def apply(v_loc: torch.Tensor):
         y, ss = sop.local_apply(v_loc)

@@ -101,6 +101,11 @@ class ShardedSectorOp:
         return (self.vshape[0] // self.mesh.size, self.vshape[1])
 
     @property
+    def nnz(self) -> int:
+        """The whole sector's nonzeros a matvec applies (counters)."""
+        return self.op.nnz_count
+
+    @property
     def device(self) -> torch.device:
         return self.op.device
 

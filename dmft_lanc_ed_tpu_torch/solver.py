@@ -14,7 +14,11 @@ tables, eigenstates, GF poles and frequency-grid math
 live on the host. Frequency grids match allocate_grids
 (ED_AUX_FUNX.f90:278-304): wm = pi/beta (2n+1), wr = linspace(wini, wfin),
 tau = [0, beta]. A replica bath takes the symmetry basis `h_basis` and the
-impurity's coefficients `lambda_imp` (``hloc.decompose_hloc``).
+impurity's coefficients `lambda_imp` (``hloc.decompose_hloc``). Each solve
+resets ``utils.kernel_stats`` and reports its matvecs, the nonzeros they
+applied and their rates over the diag + gf seconds as
+``timings["kernel_*"]``; ``restore`` re-seeds a solver from the restart
+files ``io.write_all`` writes.
 Susceptibilities and phonons are not ported (ROADMAP A6) and raise.
 """
 from __future__ import annotations
@@ -37,6 +41,7 @@ from .ops.factory import resolve_device
 from .observables import (Observables, local_energy_impurity,
                           observables_impurity, zimp_simp)
 from .sectors import SectorTable
+from .utils.observability import kernel_stats
 
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
 
@@ -97,6 +102,21 @@ class EDSolver:
         self.wr = real_grid(cfg)
         self.last_result: Optional[SolveResult] = None
 
+    # -- checkpoint/restart (reference .restart file protocol) -------------
+    def restore(self, workdir: str = ".", suffix: str = ""
+                ) -> Optional[np.ndarray]:
+        """Re-seed solver state from a reference-style restart directory:
+        the state list (``state_list*.restart``, else ``.ed``: the spectrum
+        shape, neigen_sector and the sector restriction hints) into
+        ``diag_state``, and the bath from ``hamiltonian*.restart``.
+        Returns the restored packed bath or None."""
+        from . import io as edio
+        ctl = edio.read_state_list_restart(self.cfg, outdir=workdir,
+                                           suffix=suffix)
+        if ctl is not None:
+            self.diag_state = ctl
+        return edio.read_bath_restart(self.cfg, outdir=workdir, suffix=suffix)
+
     def init_bath(self) -> np.ndarray:
         """Default bath guess as packed user array (ed_init_solver output)."""
         return pack_bath(self.cfg, init_bath(
@@ -108,6 +128,7 @@ class EDSolver:
         nsym = self.h_basis.shape[0] if self.h_basis is not None else None
         bath = unpack_bath(cfg, np.asarray(bath), nsym=nsym)
         h_basis = self.h_basis
+        kernel_stats.reset()
         timings = {}
 
         def synced_time():
@@ -146,6 +167,9 @@ class EDSolver:
         timings["sigma"] = time.perf_counter() - t0
         obs.zimp, obs.simp = zimp_simp(cfg, sigma_mats, self.wm)
         timings["total"] = time.perf_counter() - t_all
+        kernel_stats.seconds = timings["diag"] + timings["gf"]
+        timings.update({f"kernel_{k}": v
+                        for k, v in kernel_stats.summary().items()})
 
         result = SolveResult(
             sigma_mats=sigma_mats, sigma_real=sigma_real,

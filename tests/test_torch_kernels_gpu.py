@@ -717,3 +717,29 @@ def test_sharded_ground_state_over_nccl(cuda, two_cards):
         assert abs(vals[0] - e_ref[0]) <= 1e-9
         assert vals.tobytes() == out[0][2].tobytes()
         assert vecs.tobytes() == out[0][3].tobytes()
+
+
+def test_kanamori_driver_on_the_band_sparse_path(cuda):
+    """The three-orbital Kanamori driver, one loop on the card with its
+    sectors above 4,000 states band-sparse (nbath = 2: (4,4) of 15,876
+    states and its neighbours): B2, B3 and B4 launch, every chain seed
+    reaches its eta_target, the orbitals stay degenerate, and loop 1's Egs
+    equals the dense f64 backend's solve of the same bath on the card
+    (1e-9)."""
+    from dmft_lanc_ed_tpu_torch.models import multiorb_kanamori as mk
+    kw = dict(nbath=2, beta=50.0, lmats=128, lfit=64, lreal=16, nloop=1,
+              **mk.DEFAULTS)
+    cfg = pt.EDConfig(ed_backend="pallas", ed_batch_dim_max=4000,
+                      ed_gf_chain_min_dim=4000, **kw)
+    bc.reset_launch_counts()
+    res = mk.run_dmft(cfg, device=cuda, verbose=False)
+    assert all(n > 0 for n in bc.launch_counts.values()), bc.launch_counts
+    assert bc.seed_counts["missed"] == 0 and bc.seed_counts["reached"] > 0
+    ent = res.history[0]
+    assert ent["routing"][0] > 0
+    assert ent["timings"]["kernel_matvecs"] >= sum(bc.step_counts.values())
+    assert np.ptp(ent["dens"]) < 1e-6 and np.ptp(ent["docc"]) < 1e-6
+    dense = pt.EDSolver(pt.EDConfig(ed_backend="dense", ed_precision="f64",
+                                    **kw), np.zeros((1, 1, 3, 3)),
+                        device=cuda)
+    assert abs(dense.solve(ent["bath"]).observables.egs - ent["egs"]) <= 1e-9
