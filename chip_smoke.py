@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9,10]
+    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12]
                           [--ghost-tol X]
 
 ``--ghost-tol`` replaces ``ops.bs_chain._GHOST_TOL`` for the run: phase 4
@@ -16,7 +16,7 @@ nonzero without a result line):
 1. build the CUDA kernels from ``dmft_lanc_ed_tpu_torch/csrc`` (one nvcc
    per source, all started together; each one's seconds and warnings are
    printed, and ptxas's C7515, wgmma serialized, fails the phase), while
-   the host ARPACK oracles of phases 2-7, 9 and 10 run in a thread.
+   the host ARPACK oracles of phases 2-7 and 9-12 run in a thread.
 2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag, B1 the
    per-call matvec, trimmed and whole-window) against its plain PyTorch
    version at the 854k-state (6,6) sector of nbath = 11, with the
@@ -38,7 +38,9 @@ nonzero without a result line):
    at the same sectors, and B5 (one of 2 shards) where the sector shards
    over 2 ranks ((6,6) alone), by graph replay; B4, 200 steps, by events,
    one chain at the GF target (7,6) (924 x 792, padded 1024 x 896), at
-   (6,6) and at (3,4), and four chains at (6,6); each with its bound.
+   (6,6) and at (3,4), and four and seven chains at (6,6) (seven: a
+   susceptibility's batch in three orbitals, phase 11); each with its
+   bound.
    Only the wrappers' public calls are timed, so the script run from a
    checkout of an earlier tree times that tree's kernels.
 3. the two-stage ground state of that sector on the card (chain stage 1)
@@ -141,9 +143,41 @@ nonzero without a result line):
    Sigma(iw) to 1e-8 (9 decimals written), ``EDSolver.restore`` the fitted
    bath to 1e-11 (12 decimals) and a ``neigen_sector`` equal to the state
    list's per-sector counts. The loop's diag / gf / fit seconds and the
-   phase's are printed beside the card's name and power limit. The chain
-   kernels' launches and steps of the kernel line are those of phases 4,
-   5, 9 and 10.
+   phase's are printed beside the card's name and power limit.
+11. the spin and charge susceptibilities of phase 10's model at 853,776
+   states: one ``EDSolver.solve`` at the initial bath with
+   ``chispin_flag`` and ``chidens_flag``, restricted to (6,6)
+   (``ed_sectors``, shift 0), the default configuration: Egs against
+   phase 10's host ARPACK (1e-10); for k states the chains of each B4
+   launch are 3k, 3k (the GF), 7k, 7k (each kind: 3 diagonal, 3 mixed, the
+   total), every chi chain through B4; orbital 0's and the total channel
+   of each kind against the same start vectors through the f64 Lanczos
+   scan over the f64-exact band apply: chi(iv_n), n < 64, within 2e-5 x
+   max|chi| (B4's GF contract), tau and the real axis printed; beta times
+   the lowest Ritz value's distance to E of the whole n|psi> chain, by B4
+   and by f64, printed (the dE = 0 pole, which the solve stores exactly,
+   against the iv_0 cut of 1e-3); the three orbitals' chi_aa equal to
+   1e-6 relative, the chi_ab (a != b) to 2e-5 x max|chi_aa| (each is
+   (chi_mix - chi_aa - chi_bb) / 2 of three B4 channels: B4's contract),
+   chi_ab the same object as chi_ba, chi_aa(iv_0) > 0; ``io.write_all``'s spinChi / densChi files
+   (60) read back within their 9 decimals.
+12. phonons, Jx/Jp and full ED on the dense path (cuBLAS, no hand
+   kernel), each solve restricted to the 9 sectors around the half-filled
+   one: (a) holstein7 (norb 1, nbath 7, nph 10, g 0.5, w0 0.8; (4,4) holds
+   53,900 states) and (b) kanamori2-jxjp (norb 2, nbath 4, uloc 2, ust 1,
+   jh = jx = jp = 0.5; (5,5) holds 63,504), T = 0: the default
+   configuration's Egs against host ARPACK of the ground-state sector
+   with every sector term (1e-10); an f64 solve with batched buckets
+   against one without (|dEgs| 1e-9, dens 1e-8, G(iw) 1e-7: the JAX
+   test's gates, test_features.py:test_batched_scan_finite_t_and_phonons;
+   the default mixed solve's distance to them printed); holstein7's
+   phonon occupations summing to 1 (1e-8) and its displacement GF set;
+   (c) full ED (norb 1, nbath 3, beta 10) against the finite-T Krylov
+   solve of every state on the card in f64: Egs 1e-9, G(iw) 1e-5, dens
+   1e-6, chi(iv) 1e-8. Each part's seconds are printed.
+
+The chain kernels' launches and steps of the kernel line are those of
+phases 4, 5, 9, 10 and 11.
 
 The line before the last is the kernel table as JSON. Each kernel's bound
 is the larger of its FP32 operations over 67 TFLOP/s and its bytes, each
@@ -394,7 +428,11 @@ def sector_854k(sqn=(HALF, HALF)):
 
 
 def host_ground_state(h, sec, label=""):
-    """Host ARPACK ground state of the assembled CSR (bench.py's oracle)."""
+    """Host ARPACK ground state of the assembled CSR (bench.py's oracle),
+    every sector term in it: the hops and the diagonal, the Jx/Jp tensor
+    products sum_t B_t (x) A_t, and with phonons w0 n_ph (x) 1 and
+    X_ph (x) E_eph, as scipy.sparse Kronecker products over the sector's
+    (phonon, dw, up) index."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spl
 
@@ -405,12 +443,28 @@ def host_ground_state(h, sec, label=""):
         m.eliminate_zeros()
         return m
     t0 = time.perf_counter()
-    hfull = (sp.kron(sp.identity(sec.dim_dw, format="csr"),
-                     factor_csr(h.up_cols, h.up_vals, sec.dim_up))
-             + sp.kron(factor_csr(h.dw_cols, h.dw_vals, sec.dim_dw),
-                       sp.identity(sec.dim_up, format="csr"))
+    du, dd = sec.dim_up, sec.dim_dw
+    hfull = (sp.kron(sp.identity(dd, format="csr"),
+                     factor_csr(h.up_cols, h.up_vals, du))
+             + sp.kron(factor_csr(h.dw_cols, h.dw_vals, dd),
+                       sp.identity(du, format="csr"))
              + sp.diags(np.asarray(h.diag, np.float64).ravel())).tocsr()
-    w, v = spl.eigsh(hfull, k=1, which="SA", tol=1e-13)
+    if h.nd_up_src is not None:
+        for t in range(h.nd_up_src.shape[0]):
+            hfull = hfull + sp.kron(
+                factor_csr(np.asarray(h.nd_dw_src[t])[:, None],
+                           np.asarray(h.nd_dw_val[t])[:, None], dd),
+                factor_csr(np.asarray(h.nd_up_src[t])[:, None],
+                           np.asarray(h.nd_up_val[t])[:, None], du))
+    if h.ph_diag is not None:
+        dp = len(h.ph_diag)
+        hfull = (sp.kron(sp.identity(dp), hfull)
+                 + sp.kron(sp.diags(np.asarray(h.ph_diag, np.float64)),
+                           sp.identity(dd * du))
+                 + sp.kron(sp.csr_matrix(np.asarray(h.eph_x, np.float64)),
+                           sp.diags(np.asarray(h.eph_el,
+                                               np.float64).ravel())))
+    w, v = spl.eigsh(hfull.tocsr(), k=1, which="SA", tol=1e-13)
     say(f"host ARPACK{label}: E0 = {w[0]:+.12f} "
         f"({time.perf_counter() - t0:.1f} s)")
     return float(w[0]), v[:, 0]
@@ -777,7 +831,8 @@ def phase2s():
             f"{ms1[0]:.4f} ms, B1b {ms1[1]:.4f} ms a call (bound "
             f"{b1[0]:.4f} ms, {b1[1]}); {b5_text}")
     m = GF_STEPS
-    for sqn, nb in [(q, 1) for q in GF_SHAPES] + [((HALF, HALF), 4)]:
+    for sqn, nb in [(q, 1) for q in GF_SHAPES] + [((HALF, HALF), 4),
+                                                  ((HALF, HALF), 7)]:
         op = sector_854k(sqn)[3]
         vb = starts(op, nb)
         ms4 = cuda_ms(lambda: bc.gf_tridiag_call(op, vb, m), 3) / m
@@ -1671,9 +1726,341 @@ def phase10(oracle):
     return counts, steps, dt
 
 
+# phase 11: spin and charge susceptibilities of kanamori3 at the 854k sector
+P11_NIV = 64              # the Matsubara points the f64-chain gate reads
+P11_CHI_TOL = 2e-5        # x max|chi|: B4's GF contract (PERF.md section 2)
+
+
+def _p11_model():
+    """(cfg, hloc) of kanamori3-chi-854k: phase 10's model with both
+    susceptibilities, one solve restricted to the (6,6) sector."""
+    cfg, hloc = _p10_model()
+    return cfg.replace(chispin_flag=True, chidens_flag=True,
+                       ed_sectors=True, ed_sectors_shift=0), hloc
+
+
+def _chi_f64(cfg, op, states, table, channels):
+    """The chi channels `channels` [(kind, key)] of the state list `states`
+    from the same
+    start vectors as the solve's, through the f64 Lanczos scan over the
+    f64-exact band apply: {(kind, key): ChiPoles}."""
+    from dmft_lanc_ed_tpu_torch import chi as pchi
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import matvec_bs_exact_flat
+    batcher = pchi._ChiBatcher(cfg.replace(ed_gf_chain_min_dim=1 << 62),
+                               lambda sqn: (op, matvec_bs_exact_flat))
+    ops = {"spin": pchi._sz_op(cfg), "dens": pchi._n_op(cfg)}
+    out = {}
+    for therm, st in pchi._therm_states(cfg, states):
+        sec = table.sector(st.qn)
+        for kind, key in channels:
+            orbs = range(cfg.norb) if key == (-1, -1) else (key[0],)
+            d = sum(ops[kind](sec, a) for a in orbs)
+            batcher.add(st.qn, pchi._diag_op_excite(sec, st.vec, d), st.vec,
+                        st.e, therm, out.setdefault((kind, key),
+                                                    pchi.ChiPoles()))
+    batcher.run()
+    return out
+
+
+def _lowest_ritz_beta_de(cfg, op, st, table, m):
+    """beta * (lowest Ritz value - E_psi) of the WHOLE start vector n|psi>
+    (orbital 0 and the total, no exact pole taken out), from B4 and from
+    the f64 chain: the dE = 0 pole's distance to the iv_0 cut 1e-3."""
+    import torch
+    from dmft_lanc_ed_tpu_torch import chi as pchi
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import matvec_bs_exact_flat
+    from dmft_lanc_ed_tpu_torch.ops.lanczos import (lanczos_tridiag_batched,
+                                                    tridiag_eigh)
+    sec = table.sector(st.qn)
+    n_op = pchi._n_op(cfg)
+    vs = np.stack([pchi._diag_op_excite(sec, st.vec, n_op(sec, 0)),
+                   pchi._diag_op_excite(sec, st.vec, sum(
+                       n_op(sec, a) for a in range(cfg.norb)))])
+    vs /= np.linalg.norm(vs, axis=1)[:, None]
+    chains = {"B4": bc.gf_tridiag_batch(op, vs, m),
+              "f64": lanczos_tridiag_batched(
+                  op, torch.as_tensor(vs, device=op.device), m,
+                  matvec_bs_exact_flat)}
+    return {name: [cfg.beta * (tridiag_eigh(a, b)[0][0] - st.e)
+                   for a, b in zip(*ab)] for name, ab in chains.items()}
+
+
+def phase11(oracle):
+    """kanamori3-chi-854k: one solve of phase 10's model restricted to
+    (6,6) with both susceptibilities; every chi chain through B4 at 7 a
+    launch, gated against an f64 chain from the same start vectors."""
+    import tempfile
+    import torch
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch import chi as pchi
+    from dmft_lanc_ed_tpu_torch import io as edio
+    from dmft_lanc_ed_tpu_torch.gf import HCache
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    from dmft_lanc_ed_tpu_torch.solver import (bosonic_grid, real_grid,
+                                               tau_grid)
+    cfg, hloc = _p11_model()
+    if cfg.ed_backend != "auto" or not cfg.ed_batch_sectors:
+        raise AssertionError("phase 11 must run the default configuration")
+    t_all = time.perf_counter()
+    solver = pt.EDSolver(cfg, hloc, device=DEVICE)
+    solver.diag_state.sector_hint = [pt.qn(HALF, HALF)]
+    packed = solver.init_bath()
+    bc.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solver.solve(packed)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, steps, seeds, chains = _chain_counts()
+    states = res.state_list.states
+    k = len(states)
+    de = abs(res.state_list.emin - oracle["e0"])
+    routing = dict(pchi.routing)
+    say(f"phase 11 kanamori3-chi-854k: one solve at (6,6) in {dt:.2f} s "
+        f"({CARD}): diag {res.timings['diag']:.2f} s, gf "
+        f"{res.timings['gf']:.2f} s, chi {res.timings['chi']:.2f} s; {k} "
+        f"state(s) in {sorted({s.qn for s in states})}, Egs "
+        f"{res.state_list.emin:+.12f}, ARPACK {oracle['e0']:+.12f}, |dE| "
+        f"{de:.3e} (gate 1e-10)")
+    say(f"  launches {counts}, steps {steps}, chain seeds {seeds}, chains "
+        f"of each B4 launch {chains}, gf routing {res.gf.routing}, chi "
+        f"routing {routing}")
+    if not de <= 1e-10:
+        raise AssertionError("kanamori3-chi-854k misses the ARPACK energy")
+    if sorted(chains) != sorted([3 * k, 3 * k, 7 * k, 7 * k]):
+        raise AssertionError(f"B4 launches carried {chains}, not 3k, 3k, "
+                             f"7k, 7k for k = {k}")
+    if not (routing["spin"] == routing["dens"] == (7 * k, 0)):
+        raise AssertionError(f"a chi chain missed B4: {routing}")
+    # the f64 chain from the same start vectors
+    table = solver.table
+    op, _ = HCache(cfg, table, hloc, pt.unpack_bath(cfg, packed),
+                   device=DEVICE)(pt.qn(HALF, HALF))
+    channels = [(kind, key) for kind in ("spin", "dens")
+                for key in ((0, 0), (-1, -1))]
+    t1 = time.perf_counter()
+    ref = _chi_f64(cfg, op, res.state_list, table, channels)
+    t_f64 = time.perf_counter() - t1
+    vm, tau, wr = bosonic_grid(cfg), tau_grid(cfg), real_grid(cfg)
+    worst = 0.0
+    for kind, key in channels:
+        a = getattr(res, f"chi_{kind}")[key]
+        b = ref[(kind, key)]
+        iv_a, iv_b = a.matsubara(cfg.beta, vm), b.matsubara(cfg.beta, vm)
+        d_iv = float(np.abs(iv_a - iv_b)[:P11_NIV].max())
+        scale = float(np.abs(iv_b).max())
+        d_tau = float(np.abs(a.imtime(tau) - b.imtime(tau)).max())
+        d_w = float(np.abs(a.realaxis(cfg.beta, wr, cfg.eps)
+                           - b.realaxis(cfg.beta, wr, cfg.eps)).max())
+        worst = max(worst, d_iv / scale)
+        say(f"  chi_{kind}{key} vs the f64 chain: max|d| iv (n < "
+            f"{P11_NIV}) {d_iv:.3e} (gate {P11_CHI_TOL:g} x max|chi| = "
+            f"{P11_CHI_TOL * scale:.3e}), tau {d_tau:.3e}, w {d_w:.3e} "
+            f"(printed, not gated); chi(iv_0) {iv_a[0]:+.9f}")
+    say(f"  the f64 chains: {len(channels) * k} chains of "
+        f"{min(table.dim(pt.qn(HALF, HALF)), cfg.lanc_ngfiter)} steps in "
+        f"{t_f64:.2f} s")
+    if not worst <= P11_CHI_TOL:
+        raise AssertionError("chi misses B4's contract against the f64 "
+                             "chain")
+    bde = _lowest_ritz_beta_de(cfg, op, states[0], table,
+                               min(table.dim(pt.qn(HALF, HALF)),
+                                   cfg.lanc_ngfiter))
+    say(f"  the whole n|psi> chain (orbital 0, total): beta * (lowest "
+        f"Ritz - E) B4 {['%.3e' % x for x in bde['B4']]}, f64 "
+        f"{['%.3e' % x for x in bde['f64']]} (iv_0 cut 1e-3; the solve "
+        f"stores that pole exactly)")
+    # the degenerate orbitals, chi_ab == chi_ba, chi(iv_0) > 0
+    for kind in ("spin", "dens"):
+        chis = getattr(res, f"chi_{kind}")
+        dia = [chis[(a, a)].matsubara(cfg.beta, vm) for a in range(3)]
+        mix = [chis[(a, b)].matsubara(cfg.beta, vm)
+               for a in range(3) for b in range(a + 1, 3)]
+        s_d = float(np.abs(dia[0]).max())
+        r_d = max(float(np.abs(x - dia[0]).max()) for x in dia) / s_d
+        # chi_ab = (chi_mix - chi_aa - chi_bb) / 2 cancels: its spread is
+        # held to B4's contract on the scale of the channels it comes from
+        r_m = max(float(np.abs(x - mix[0]).max()) for x in mix) / s_d
+        sym = all(np.array_equal(chis[(a, b)].matsubara(cfg.beta, vm),
+                                 chis[(b, a)].matsubara(cfg.beta, vm))
+                  for a in range(3) for b in range(3))
+        say(f"  chi_{kind}: diagonal channels agree to {r_d:.2e} (gate "
+            f"1e-6), mixed to {r_m:.2e} (gate {P11_CHI_TOL:g}) of "
+            f"max|chi_aa|, chi_ab == chi_ba: {sym}, "
+            f"chi_aa(iv_0) {[round(float(x[0]), 9) for x in dia]}, "
+            f"chi_ab(iv_0) {[round(float(x[0]), 9) for x in mix]}")
+        if not (r_d <= 1e-6 and r_m <= P11_CHI_TOL and sym):
+            raise AssertionError(f"chi_{kind}: the degenerate orbitals "
+                                 "differ")
+        if not all(x[0] > 0 for x in dia):
+            raise AssertionError(f"chi_{kind}(iv_0) <= 0 on the diagonal")
+    with tempfile.TemporaryDirectory() as d:
+        edio.write_all(cfg, res, packed, outdir=d)
+        names = sorted(n for n in os.listdir(d) if "Chi_" in n)
+        d_file = 0.0
+        for kind in ("spin", "dens"):
+            for key, chi in getattr(res, f"chi_{kind}").items():
+                lbl = "tot" if key[0] < 0 else f"{key[0] + 1}{key[1] + 1}"
+                for grid, x, f in (
+                        ("iv", vm, chi.matsubara(cfg.beta, vm)),
+                        ("tau", tau, chi.imtime(tau)),
+                        ("realw", wr, chi.realaxis(cfg.beta, wr, cfg.eps))):
+                    back = np.loadtxt(os.path.join(
+                        d, f"{kind}Chi_l{lbl}_{grid}.ed"))
+                    got = back[:, 1] if back.shape[1] == 2 else \
+                        back[:, 2] + 1j * back[:, 1]
+                    d_file = max(d_file, float(np.abs(back[:, 0] - x).max()),
+                                 float(np.abs(got - f).max()))
+    want = 2 * 3 * (cfg.norb ** 2 + 1)
+    say(f"  files: {len(names)} spinChi/densChi files (want {want}), read "
+        f"back max|d| {d_file:.3e} (tol 1e-9, 9 decimals)")
+    if not (len(names) == want and d_file <= 1e-9):
+        raise AssertionError("the chi files do not read back")
+    say(f"phase 11: {time.perf_counter() - t_all:.1f} s ({CARD})")
+    return counts, steps, dt
+
+
+# phase 12: phonons, Jx/Jp and full ED on the dense path (cuBLAS)
+P12_MODELS = {
+    # a Holstein impurity: (4,4) holds 4,900 x 11 = 53,900 states
+    "holstein7": (dict(norb=1, nbath=7, uloc=(2.0,), nph=10, g_ph=(0.5,),
+                       w0_ph=0.8), (4, 4)),
+    # two orbitals with spin exchange and pair hopping: (5,5) holds 63,504
+    "kanamori2-jxjp": (dict(norb=2, nbath=4, uloc=(2.0, 2.0), ust=1.0,
+                            jh=0.5, jx=0.5, jp=0.5), (5, 5)),
+}
+# each solve restricted to the 9 sectors around the half-filled one
+P12_GRID = dict(beta=100.0, lmats=1024, lreal=64, ed_sectors=True)
+# full ED against the Krylov solve (test_solver.py / test_chi.py models)
+P12_FULL = dict(norb=1, nbath=3, uloc=(2.0,), beta=10.0, lmats=256,
+                lreal=64, ed_finite_temp=True, lanc_nstates_total=4096,
+                chispin_flag=True, chidens_flag=True)
+
+
+def phase12_oracles():
+    """Phase 12's host side, run in phase 1's thread: ARPACK of each
+    model's half-filled sector at the initial bath, every sector term in
+    the assembled CSR."""
+    import dmft_lanc_ed_tpu_torch as pt
+    out = {}
+    for name, (model, sqn) in P12_MODELS.items():
+        cfg = pt.EDConfig(**model, **P12_GRID)
+        h, sec = _sector_h(cfg, np.zeros((1, 1, cfg.norb, cfg.norb)),
+                           pt.init_bath(cfg), pt.qn(*sqn))
+        out[name] = host_ground_state(h, sec, f" {name} {sqn}")[0]
+    return out
+
+
+def _p12_solve(cfg, sqn):
+    """One solve restricted to the sectors around `sqn`: (result, s,
+    batched bucket counts)."""
+    import torch
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.ops import batched as bt
+    solver = pt.EDSolver(cfg, np.zeros((1, 1, cfg.norb, cfg.norb)),
+                         device=DEVICE)
+    solver.diag_state.sector_hint = [pt.qn(*sqn)]
+    bt.reset_bucket_counts()
+    t0 = time.perf_counter()
+    res = solver.solve(solver.init_bath())
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(bt.bucket_counts)
+
+
+def phase12(oracles):
+    """(a) holstein7 and (b) kanamori2-jxjp: the default configuration
+    against host ARPACK; batched against serial, both f64; (c) full ED
+    against the Krylov solve on the card."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch import chi as pchi
+    t_all = time.perf_counter()
+    for part, (name, (model, sqn)) in zip("ab", P12_MODELS.items()):
+        t_p = time.perf_counter()
+        cfg = pt.EDConfig(**model, **P12_GRID)
+        if cfg.ed_backend != "auto" or not cfg.ed_batch_sectors:
+            raise AssertionError("phase 12 must run the default "
+                                 "configuration")
+        res, dt, bk = _p12_solve(cfg, sqn)
+        gs = res.state_list.states[0]
+        if gs.qn == pt.qn(*sqn):
+            e_ref = oracles[name]
+        else:
+            h, sec = _sector_h(cfg, np.zeros((1, 1, cfg.norb, cfg.norb)),
+                               pt.init_bath(cfg), gs.qn)
+            e_ref = host_ground_state(h, sec, f" {name} {gs.qn}")[0]
+        de = abs(res.state_list.emin - e_ref)
+        f64 = dict(ed_precision="f64")
+        rb, dt_b, bk_b = _p12_solve(cfg.replace(**f64), sqn)
+        rs, dt_s, bk_s = _p12_solve(cfg.replace(ed_batch_sectors=False,
+                                                **f64), sqn)
+        d_e = abs(rb.state_list.emin - rs.state_list.emin)
+        d_n = float(np.abs(rb.observables.dens - rs.observables.dens).max())
+        d_g = float(np.abs(rb.g_mats - rs.g_mats).max())
+        m_n = float(np.abs(res.observables.dens - rs.observables.dens).max())
+        m_g = float(np.abs(res.g_mats - rs.g_mats).max())
+        say(f"phase 12({part}) {name}: {len(res.state_list.states)} "
+            f"state(s) in {sorted({s.qn for s in res.state_list.states})}, "
+            f"ground-state sector dim {pt.SectorTable(cfg).dim(gs.qn)}; the "
+            f"default configuration (mixed, batched) in {dt:.2f} s: Egs "
+            f"{res.state_list.emin:+.12f}, host ARPACK {e_ref:+.12f}, |dE| "
+            f"{de:.3e} (gate 1e-10), buckets {bk}")
+        say(f"  f64 batched ({dt_b:.2f} s, buckets {bk_b}) vs f64 serial "
+            f"({dt_s:.2f} s, buckets {bk_s}): |dEgs| {d_e:.3e} (gate 1e-9), "
+            f"dens {d_n:.3e} (1e-8), G(iw) {d_g:.3e} (1e-7); the default "
+            f"(mixed) vs f64 serial, printed: dens {m_n:.3e}, G(iw) "
+            f"{m_g:.3e}")
+        if not de <= 1e-10:
+            raise AssertionError(f"{name} misses the ARPACK energy")
+        if not (bk["buckets"] > 0 and bk_b["buckets"] > 0
+                and bk_s["buckets"] == 0):
+            raise AssertionError(f"{name}: buckets {bk}, {bk_b}, {bk_s}")
+        if not (d_e <= 1e-9 and d_n <= 1e-8 and d_g <= 1e-7):
+            raise AssertionError(f"{name}: batched differs from serial")
+        if not all(np.all(np.isfinite(x)) for x in (
+                res.sigma_mats, res.g_mats, rb.g_mats)):
+            raise AssertionError(f"{name}: non-finite output")
+        if "holstein" in name:
+            occ = res.observables.ph_occ
+            ph = res.gf_phonon
+            d_occ = abs(float(occ.sum()) - 1.0)
+            say(f"  phonons: sum ph_occ - 1 = {d_occ:.3e} (tol 1e-8), "
+                f"<x> {res.observables.x_ph:+.6f}, D(iv_0) "
+                f"{-ph.matsubara(cfg.beta, np.zeros(1))[0]:+.6f}, phonon "
+                f"chain routing {pchi.routing.get('phonon')}")
+            if not (d_occ <= 1e-8 and ph is not None and len(ph.peso)):
+                raise AssertionError("holstein7: phonon observables")
+        say(f"  phase 12({part}): {time.perf_counter() - t_p:.1f} s")
+    # (c) full ED against the Krylov solve on the card
+    t_p = time.perf_counter()
+    cfg_f = pt.EDConfig(ed_diag_type="full", **P12_FULL)
+    cfg_l = pt.EDConfig(lanc_nstates_sector=4096, lanc_dim_threshold=4096,
+                        ed_precision="f64", **P12_FULL)
+    bath = pt.EDSolver(cfg_f, device=DEVICE).init_bath()
+    rf = pt.EDSolver(cfg_f, device=DEVICE).solve(bath)
+    rl = pt.EDSolver(cfg_l, device=DEVICE).solve(bath)
+    d_e = abs(rf.state_list.emin - rl.state_list.emin)
+    d_g = float(np.abs(rf.g_mats - rl.g_mats).max())
+    d_n = float(np.abs(rf.observables.dens - rl.observables.dens).max())
+    vm = np.pi / cfg_f.beta * 2 * np.arange(cfg_f.lmats)
+    d_chi = max(float(np.abs(getattr(rf, k)[c].matsubara(cfg_f.beta, vm)
+                             - getattr(rl, k)[c].matsubara(cfg_f.beta, vm)
+                             ).max())
+                for k in ("chi_spin", "chi_dens") for c in getattr(rf, k))
+    say(f"phase 12(c) full ED: {rf.state_list.size} states (all "
+        f"{4 ** cfg_f.ns}) vs the Krylov solve on the card "
+        f"({rl.state_list.size} states, f64): |dEgs| {d_e:.3e} (gate 1e-9), "
+        f"G(iw) {d_g:.3e} (1e-5), dens {d_n:.3e} (1e-6), chi(iv) "
+        f"{d_chi:.3e} (1e-8); {time.perf_counter() - t_p:.1f} s")
+    if not (rf.state_list.size == 4 ** cfg_f.ns and d_e <= 1e-9
+            and d_g <= 1e-5 and d_n <= 1e-6 and d_chi <= 1e-8):
+        raise AssertionError("full ED differs from the Krylov solve")
+    say(f"phase 12: {time.perf_counter() - t_all:.1f} s ({CARD})")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,2s,3,3b,4,5,6,7,8,9,10")
+    ap.add_argument("--phases",
+                    default="0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12")
     ap.add_argument("--ghost-tol", type=float, default=None)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1700,7 +2087,7 @@ def main():
             bs_chain._GHOST_TOL = args.ghost_tol
         rows, counts, steps = [], {}, {}
         e_gs = serial = None
-        e0 = arpack = p9_oracle = p10_oracle = None
+        e0 = arpack = p9_oracle = p10_oracle = p12_oracle = None
         # the host oracles run in a thread while nvcc builds
         oracle = ThreadPoolExecutor(1)
         on_854k = phases & {"2", "2s", "3", "3b", "6", "7", "8"}
@@ -1710,8 +2097,11 @@ def main():
                 arpack = oracle.submit(host_ground_state, h, sec)
         if "9" in phases:
             p9_oracle = oracle.submit(phase9_oracles)
-        if "10" in phases:
+        if phases & {"10", "11"}:
+            # phase 11 solves phase 10's model at the same bath and sector
             p10_oracle = oracle.submit(phase10_oracle)
+        if "12" in phases:
+            p12_oracle = oracle.submit(phase12_oracles)
         if "1" in phases:
             phase1()
         if on_854k:
@@ -1755,11 +2145,17 @@ def main():
                     for k, n in add.items():
                         tot[k] = tot.get(k, 0) + n
             say(f"phase 9: {time.perf_counter() - t9:.1f} s")
+        later = []
         if "10" in phases:
-            c10, s10, _ = phase10(p10_oracle.result())
-            for tot, add in ((counts, c10), (steps, s10)):
+            later.append(phase10(p10_oracle.result()))
+        if "11" in phases:
+            later.append(phase11(p10_oracle.result()))
+        for c_n, s_n, _ in later:
+            for tot, add in ((counts, c_n), (steps, s_n)):
                 for k, n in add.items():
                     tot[k] = tot.get(k, 0) + n
+        if "12" in phases:
+            phase12(p12_oracle.result())
         oracle.shutdown()
     except Exception:
         traceback.print_exc()

@@ -13,6 +13,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from .bath import Bath, unpack_bath
+from .chi import ChiPoles, PairChiPoles
 from .config import EDConfig
 from .eigenspace import EigenState, StateList
 from .gf import GFData, GFPoles
@@ -57,9 +58,9 @@ def result_from_reference(res) -> SolveResult:
     the port's :class:`~.solver.SolveResult` with the same arrays: the six
     GF / Sigma arrays, every ``Observables`` field, the state list (its
     states' sectors, energies and vectors, ``diag_log``, capacity and
-    clean-cut flag), the GF poles and the timings. The JAX package's
-    susceptibility fields are not carried (the port's result has none
-    until ROADMAP A6)."""
+    clean-cut flag), the GF poles, the susceptibilities and the phonon GF
+    (channels that share one pole object keep sharing it) and the
+    timings."""
     obs = Observables(**{f.name: _host(getattr(res.observables, f.name))
                          for f in dataclasses.fields(Observables)})
     sl = res.state_list
@@ -74,8 +75,34 @@ def result_from_reference(res) -> SolveResult:
     gf = GFData(channels={tuple(int(i) for i in c): GFPoles(
         np.array(p.weights, np.float64), np.array(p.poles, np.float64))
         for c, p in res.gf.channels.items()})
+    memo: Dict[int, object] = {}
+
+    def poles(p):
+        """A JAX ChiPoles / PairChiPoles -> the port's, once per object."""
+        if p is None:
+            return None
+        if id(p) not in memo:
+            if hasattr(p, "pth"):
+                memo[id(p)] = ChiPoles(*(np.array(getattr(p, f), np.float64)
+                                         for f in ("peso", "pth", "de",
+                                                   "rev")),
+                                       beta=float(p.beta))
+            else:
+                memo[id(p)] = PairChiPoles(
+                    *(np.array(getattr(p, f), np.float64)
+                      for f in ("peso", "ei", "ej")),
+                    zeta=float(p.zeta), beta=float(p.beta))
+        return memo[id(p)]
+
+    def chiset(chis):
+        if chis is None:
+            return None
+        return {tuple(int(i) for i in k): poles(v) for k, v in chis.items()}
     arrays = {k: np.array(getattr(res, k)) for k in (
         "sigma_mats", "sigma_real", "g_mats", "g_real", "g0_mats",
         "g0_real")}
     return SolveResult(observables=obs, state_list=states, gf=gf,
+                       chi_spin=chiset(res.chi_spin),
+                       chi_dens=chiset(res.chi_dens),
+                       gf_phonon=poles(res.gf_phonon),
                        timings=dict(res.timings), **arrays)

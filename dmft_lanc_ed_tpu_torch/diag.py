@@ -22,8 +22,9 @@ its halo form applies (parallel/bs_sharded.py), else through the sharded
 dense operator (parallel/production.py), each choice logged. Every rank
 ends with the same states.
 
-Not ported yet, and raising: ``ed_diag_type="full"`` and
-``lanc_method="dvdson"``.
+``ed_diag_type="full"`` diagonalizes every sector completely by host
+LAPACK (:func:`_diag_full`) and keeps every state. Not ported yet, and
+raising: ``lanc_method="dvdson"``.
 """
 from __future__ import annotations
 
@@ -59,19 +60,15 @@ from .sectors import SectorQN, SectorTable
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
 
 
-def _lanc_tol(cfg: EDConfig, device) -> float:
-    """Krylov residual tolerance honoring the matvec noise floor: mixed
-    matvecs carry ~1e-7 relative error, below which the residual
-    stagnates; the f64 Rayleigh-Ritz polish recovers the rest."""
-    floor = {"f64": 1e-14, "mixed": 3e-6}
-    backend = resolve_backend(cfg, device)
-    if backend == "pallas":
-        prec = "mixed"
-    elif backend == "dense":
-        prec = resolve_precision(cfg, device)
-    else:
-        prec = "f64"
-    return max(cfg.lanc_tolerance, floor[prec])
+def _lanc_tol(cfg: EDConfig, exact: bool) -> float:
+    """Krylov residual tolerance honoring the noise floor of the apply the
+    solve runs: an f64-exact apply reaches 1e-14; a mixed one (true-f32
+    products, ~1e-7 relative) stagnates near 3e-6, and the f64
+    Rayleigh-Ritz polish recovers the rest. The JAX package takes the floor
+    from the configured backend, so there a sector that the band-sparse
+    backend hands to an f64 dense operator (phonons, Jx/Jp, every bucket)
+    stops at 3e-6 with no polish (ROADMAP C)."""
+    return max(cfg.lanc_tolerance, 1e-14 if exact else 3e-6)
 
 
 @dataclass
@@ -140,7 +137,8 @@ def _solve_batched_sectors(cfg: EDConfig, table: SectorTable, hloc, bath,
         ncv = max(min(min_dim, max(48, cfg.lanc_ncv_factor * neigen
                                    + cfg.lanc_ncv_add)), 2 * neigen + 16)
         sols = lanczos_ground_state_bucket(
-            [g[1] for g in group], neigen, tol=_lanc_tol(cfg, device),
+            [g[1] for g in group], neigen,
+            tol=_lanc_tol(cfg, resolve_precision(cfg, device) == "f64"),
             precision=resolve_precision(cfg, device), ncv=min(ncv, min_dim),
             device=device)
         log.info("batched bucket %s: %d sectors, neigen=%d, %d solved",
@@ -208,20 +206,17 @@ def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
         v0 = to_padded(op, v0n / np.linalg.norm(v0n))
         _, evecs_p = lanczos_ground_state(
             pop, partial(matvec_bs_padded, trim=False), pop.dim, neigen,
-            ncv=ncv, tol=max(_lanc_tol(cfg, op.device), 5e-5),
+            ncv=ncv, tol=max(_lanc_tol(cfg, False), 5e-5),
             dtype=torch.float32, v0=v0, vshape=pshape)
         seed = torch.as_tensor(evecs_p[0], device=op.device).reshape(pshape)
     vals, vecs_p = lanczos_ground_state(
         pop, matvec_bs_mixed_padded, pop.dim, neigen, ncv=ncv,
-        tol=max(_lanc_tol(cfg, op.device), 3e-6), dtype=torch.float64,
+        tol=_lanc_tol(cfg, False), dtype=torch.float64,
         v0=seed, vshape=pshape, polish_apply=matvec_bs_exact_padded)
     return unpad_all(vals, vecs_p)
 
 
 def _check_ported(cfg: EDConfig) -> None:
-    if cfg.ed_diag_type == "full":
-        raise NotImplementedError("ed_diag_type='full' is not ported yet "
-                                  "(ROADMAP A6)")
     if cfg.lanc_method == "dvdson":
         raise NotImplementedError("lanc_method='dvdson' is not ported yet "
                                   "(ROADMAP A5)")
@@ -250,8 +245,8 @@ def _sharded_ground_state(cfg: EDConfig, sqn, sec, hloc, bath, h_basis,
     # start vector with exact-zero pad rows (the pad subspace is invariant,
     # parallel/production.pad_dense_op)
     v0 = sop.pad_flat(np.random.default_rng(17).standard_normal(dim))
-    return sharded_dense_ground_state(sop, neigen, ncv,
-                                      _lanc_tol(cfg, device), v0)
+    return sharded_dense_ground_state(
+        sop, neigen, ncv, _lanc_tol(cfg, sop.exact_nd is sop.apply_nd), v0)
 
 
 def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
@@ -260,8 +255,10 @@ def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
                          h_basis: Optional[np.ndarray] = None) -> StateList:
     """One full spectrum determination (diagonalize_impurity, ED_DIAG.f90:22)
     on `device` (the card unless the caller asks for "cpu")."""
-    _check_ported(cfg)
     device = resolve_device(device)
+    if cfg.ed_diag_type == "full":
+        return _diag_full(cfg, table, hloc, bath, h_basis)
+    _check_ported(cfg)
     ctl = ctl or DiagState(lanc_nstates_total=cfg.lanc_nstates_total)
     finite_t = cfg.finite_t
     state_list = StateList(
@@ -305,7 +302,8 @@ def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
                 polish = None if apply_is_exact(op_apply) else exact_apply(op)
                 evals, evecs = lanczos_ground_state(
                     op, op_apply, dim, neigen, ncv=min(ncv, dim),
-                    tol=_lanc_tol(cfg, device), dtype=torch.float64,
+                    tol=_lanc_tol(cfg, apply_is_exact(op_apply)),
+                    dtype=torch.float64,
                     polish_apply=polish)
         else:
             h = build_sector_hamiltonian(cfg, sec, hloc, bath,
@@ -355,6 +353,22 @@ def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
             log.info("diag: state list is not a clean energy cut (sectors "
                      "%s top out below emax)", unclean[:4])
     _post_diag(cfg, state_list, ctl)
+    return state_list
+
+
+def _diag_full(cfg: EDConfig, table: SectorTable, hloc, bath,
+               h_basis) -> StateList:
+    """Full diagonalization of every sector (ed_full_d, ED_DIAG.f90:287-398)
+    by host LAPACK, every eigenpair kept: the observables and the GF then
+    take exact Boltzmann sums."""
+    state_list = StateList(max_size=None)
+    for sqn in table.all_qns():
+        h = build_sector_hamiltonian(cfg, table.sector(sqn), hloc, bath,
+                                     h_basis=h_basis)
+        w, v = np.linalg.eigh(dense_hamiltonian(h))
+        for k in range(len(w)):
+            state_list.add(EigenState(sqn, float(w[k]),
+                                      np.ascontiguousarray(v[:, k])))
     return state_list
 
 

@@ -24,7 +24,8 @@ The off-diagonal GF (``ed_solve_offdiag_gf``, and every hybrid or replica
 bath) queues the mixed vectors (c_a + c_b)|psi> into the same target
 sectors as the diagonal ones, so a target's diagonal and mixed chains run
 in one batch, and recombines G_ab = 1/2 (G_mix - G_aa - G_bb) pole by pole
-(ED_GF_NORMAL.f90:82-98, :347-588). ``build_gf_full`` raises (ROADMAP A6).
+(ED_GF_NORMAL.f90:82-98, :347-588). ``build_gf_full`` is the full-ED
+Lehmann double sum, on the host.
 """
 from __future__ import annotations
 
@@ -335,8 +336,66 @@ def _recombine_offdiag(cfg: EDConfig, gf: GFData) -> None:
 
 def build_gf_full(cfg: EDConfig, table: SectorTable,
                   state_list: StateList) -> GFData:
-    raise NotImplementedError("build_gf_full (ed_diag_type='full') is not "
-                              "ported yet (ROADMAP A6)")
+    """Exact Lehmann sum over the full spectrum (full_build_gf_normal),
+    host numpy:
+
+    G_ab(z) = 1/Z sum_{i,j} <j|c^+_a|i> <j|c^+_b|i> (e^{-bEi} + e^{-bEj})
+              / (z - (Ej - Ei)),
+
+    the off-diagonal channels (a != b) with ``ed_solve_offdiag_gf`` or a
+    non-normal bath; with orbital-resolved sectors (``ns_ud > 1``) each
+    orbital has its own target sector and only the diagonal channels
+    exist."""
+    gf = GFData()
+    beta = cfg.beta
+    offdiag = cfg.ed_solve_offdiag_gf or cfg.bath_type != "normal"
+    by_sector: Dict[SectorQN, List] = {}
+    for st in state_list.states:
+        by_sector.setdefault(st.qn, []).append(st)
+    e0 = state_list.emin
+    zeta = sum(np.exp(-beta * (st.e - e0)) for st in state_list.states)
+
+    def amplitudes(sqn, jqn, ispin, orbs):
+        """(<j|c^+_a|i> [Nj, Ni] per orbital a, boltzmann sums, poles)."""
+        sec_i, sec_j = table.sector(sqn), table.sector(jqn)
+        states_i, states_j = by_sector[sqn], by_sector[jqn]
+        vecs_j = np.stack([np.asarray(s.vec) for s in states_j])
+        amps = {a: vecs_j @ np.stack([
+            apply_op(cfg, sec_i, sec_j, s.vec, a, ispin, True)
+            for s in states_i]).T for a in orbs}
+        ei = np.array([s.e for s in states_i])
+        ej = np.array([s.e for s in states_j])
+        wb = (np.exp(-beta * (ei[None, :] - e0))
+              + np.exp(-beta * (ej[:, None] - e0)))
+        return amps, wb, ej[:, None] - ei[None, :]
+
+    for ispin in range(cfg.nspin):
+        accum: Dict[Tuple[int, int], list] = {}
+
+        def push(a, b, w, p):
+            keep = np.abs(w) > cfg.cutoff * 1e-3
+            accum.setdefault((a, b), []).append((w[keep], p[keep]))
+        for sqn in by_sector:
+            if table.ns_ud == 1:
+                jqn = table.cdg_sector(sqn, 0, ispin)
+                if jqn is None or jqn not in by_sector:
+                    continue
+                amps, wb, p = amplitudes(sqn, jqn, ispin, range(cfg.norb))
+                for a in range(cfg.norb):
+                    for b in range(cfg.norb):
+                        if a == b or offdiag:
+                            push(a, b, amps[a] * amps[b] * wb / zeta, p)
+            else:
+                for a in range(cfg.norb):
+                    jqn = table.cdg_sector(sqn, a, ispin)
+                    if jqn is None or jqn not in by_sector:
+                        continue
+                    amps, wb, p = amplitudes(sqn, jqn, ispin, (a,))
+                    push(a, a, amps[a] ** 2 * wb / zeta, p)
+        for (a, b), lst in accum.items():
+            gf.get((ispin, a, b)).add(np.concatenate([x[0] for x in lst]),
+                                      np.concatenate([x[1] for x in lst]))
+    return gf
 
 
 def build_sigma(cfg: EDConfig, hloc, bath: Bath, gf: GFData, z: np.ndarray,

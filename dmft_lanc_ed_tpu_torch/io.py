@@ -14,10 +14,10 @@ Writers (reference source):
 - parameters_last.ed
 - imp{Sigma,G,G0}_l<a><b>_s<s>_{iw,realw}.ed (ED_IO.f90:255-489)
 - spinChi/densChi_l<ab>_{iv,tau,realw}.ed, impDph_{iv,realw}.ed: written
-  from any object with the JAX package's susceptibility methods
-  (``matsubara``, ``imtime``, ``realaxis``); the port computes none until
-  ``chi.py`` is ported (ROADMAP A6), so ``write_all`` writes them only for
-  a result that carries them
+  from any object with the susceptibility methods (``matsubara``,
+  ``imtime``, ``realaxis``: ``chi.ChiPoles``, ``chi.PairChiPoles``);
+  ``write_all`` writes them for a result that carries them
+  (``chispin_flag``, ``chidens_flag``, phonons)
 - hamiltonian.{used,restart}             (ED_BATH/dmft_aux.f90:220-331)
 - state_list.ed / sectors_list.restart   (ED_DIAG.f90:484-526)
 """
@@ -397,16 +397,12 @@ def write_all(cfg: EDConfig, res: SolveResult, bath_array: np.ndarray,
         write_histogram_states(cfg, res.state_list, table, outdir, suffix)
     save_bath(cfg, bath_array, outdir, suffix, used=True)
     save_bath(cfg, bath_array, outdir, suffix, used=False)
-    # the susceptibility fields come with chi.py (ROADMAP A6)
-    chi_spin = getattr(res, "chi_spin", None)
-    chi_dens = getattr(res, "chi_dens", None)
-    gf_phonon = getattr(res, "gf_phonon", None)
-    if chi_spin is not None:
-        print_chi(cfg, chi_spin, "spin", outdir, suffix)
-    if chi_dens is not None:
-        print_chi(cfg, chi_dens, "dens", outdir, suffix)
-    if gf_phonon is not None:
-        print_impd(cfg, gf_phonon, outdir, suffix)
+    if res.chi_spin is not None:
+        print_chi(cfg, res.chi_spin, "spin", outdir, suffix)
+    if res.chi_dens is not None:
+        print_chi(cfg, res.chi_dens, "dens", outdir, suffix)
+    if res.gf_phonon is not None:
+        print_impd(cfg, res.gf_phonon, outdir, suffix)
 
 
 def read_gf_files(cfg: EDConfig, prefix: str = "impSigma", outdir: str = ".",

@@ -2,8 +2,8 @@
 ``dmft_lanc_ed_tpu/models/hm_2b_square.py``).
 
 Driver for the edn_hm_2b_square.f90 workload: two orbitals with Kanamori
-interaction (Uloc, Ust, Jh; Jx/Jp raise until ROADMAP A6) on an
-orbital-diagonal square dispersion, DMFT with H(k)-based local GF and chi2
+interaction (Uloc, Ust, Jh, Jx, Jp; Jx/Jp sectors take the dense
+operator) on an orbital-diagonal square dispersion, DMFT with H(k)-based local GF and chi2
 bath fitting. The impurity solves run on ``device``, the card by default
 (``device=cpu`` to run without one); the k-sum, mixing and fit on the host.
 

@@ -3,7 +3,8 @@
 
 Driver for the reference's materials-like models (edn_VO2model.f90,
 edn_PCO.f90, edn_DFT.f90): Norb in {2,3} orbitals with Kanamori
-interaction (Uloc, Ust, Jh; Jx/Jp raise until ROADMAP A6), user-supplied
+interaction (Uloc, Ust, Jh, Jx, Jp; Jx/Jp sectors take the dense
+operator), user-supplied
 crystal-field split local Hamiltonian and per-orbital semicircular or user
 DOS, solved with DOS-based local GF. Wannier/DFT input reduces to (Hloc,
 per-orbital bands), which this driver accepts directly. The impurity solves

@@ -8,8 +8,9 @@ electron-lattice coupling lambda (band edges pushed to
 orbital 2 a Bethe/flat band; the distortion x2 adds a phononic crystal-field
 contribution cfp*x2^2 to the orbital splitting delta
 (edn_VO2model.f90:58-103). The distortions enter the bands and the crystal
-field only; a configuration with phonon modes (``nph > 0``) raises until
-the phonon terms are ported (ROADMAP A6).
+field; a configuration with phonon modes (``nph > 0``, ``g_ph``, ``w0_ph``)
+adds the impurity's Holstein terms, solved on the dense operator, as in
+the JAX driver.
 
 Usage:
     python -m dmft_lanc_ed_tpu_torch.models.vo2 [inputfile] \

@@ -50,7 +50,8 @@ PAD_SHIFT = 1.0e3
 bucket_counts = {"buckets": 0, "sectors": 0, "restarts": 0,
                  "unconverged": 0}
 
-_OP_FIELDS = ("diag", "hup", "hdw", "hup32", "hdw32")
+_OP_FIELDS = ("diag", "hup", "hdw", "hup32", "hdw32", "nd_a", "nd_b",
+              "nd_a32", "nd_b32", "ph_diag", "eph_el", "eph_x")
 _APPLY = {"f64": matvec_dense, "mixed": matvec_dense_mixed}
 
 
@@ -67,16 +68,18 @@ def _pow2_at_least(n: int, floor: int = 16) -> int:
 
 
 def bucket_key(op: DenseSectorOp) -> Tuple:
-    """Shape-bucket key: (padded DimUp, padded DimDw, DimPh, Jx/Jp terms),
-    the JAX package's key; the port's dense operator has electron terms
-    only, so the last two are always (1, 0)."""
+    """Shape-bucket key: (padded DimUp, padded DimDw, DimPh, Jx/Jp
+    terms), the JAX package's key."""
+    nd_t = 0 if op.nd_a is None else op.nd_a.shape[0]
     return (_pow2_at_least(op.dim_up, floor=64),
-            _pow2_at_least(op.dim_dw, floor=64), 1, 0)
+            _pow2_at_least(op.dim_dw, floor=64), op.dim_ph, nd_t)
 
 
 def pad_dense_op_2d(op: DenseSectorOp, du_p: int, dd_p: int
                     ) -> DenseSectorOp:
-    """Zero-pad both hop axes to (du_p, dd_p); pad diagonal += PAD_SHIFT."""
+    """Zero-pad both hop axes to (du_p, dd_p); pad diagonal += PAD_SHIFT.
+    The Jx/Jp factors and the e-ph electron factor pad with zeros; the
+    phonon-axis fields keep their shape."""
     du, dd = op.dim_up, op.dim_dw
     pu, pd = du_p - du, dd_p - dd
     if pu == 0 and pd == 0:
@@ -84,32 +87,47 @@ def pad_dense_op_2d(op: DenseSectorOp, du_p: int, dd_p: int
     diag = F.pad(op.diag, (0, pu, 0, pd))
     diag[dd:, :] += PAD_SHIFT
     diag[:dd, du:] += PAD_SHIFT
+    kw = {}
+    if op.nd_a is not None:
+        kw.update({f: F.pad(getattr(op, f), (0, pu, 0, pu))
+                   for f in ("nd_a", "nd_a32")})
+        kw.update({f: F.pad(getattr(op, f), (0, pd, 0, pd))
+                   for f in ("nd_b", "nd_b32")})
+    if op.ph_diag is not None:
+        kw.update(ph_diag=op.ph_diag, eph_x=op.eph_x,
+                  eph_el=F.pad(op.eph_el, (0, pu, 0, pd)))
     return DenseSectorOp(
         diag=diag, hup=F.pad(op.hup, (0, pu, 0, pu)),
         hup32=F.pad(op.hup32, (0, pu, 0, pu)),
         hdw=F.pad(op.hdw, (0, pd, 0, pd)),
-        hdw32=F.pad(op.hdw32, (0, pd, 0, pd)), nnz_count=op.nnz_count)
+        hdw32=F.pad(op.hdw32, (0, pd, 0, pd)), nnz_count=op.nnz_count,
+        **kw)
 
 
 def stack_ops(ops: Sequence[DenseSectorOp], device=None) -> DenseSectorOp:
     """Stack same-shape ops into one op with a leading batch axis, on
-    `device` (default: where they are)."""
-    return DenseSectorOp(
-        nnz_count=sum(o.nnz_count for o in ops),
-        **{f: torch.stack([getattr(o, f) for o in ops]).to(device)
-           for f in _OP_FIELDS})
+    `device` (default: where they are); absent fields stay None."""
+    def st(f):
+        vals = [getattr(o, f) for o in ops]
+        return None if vals[0] is None else torch.stack(vals).to(device)
+    return DenseSectorOp(nnz_count=sum(o.nnz_count for o in ops),
+                         **{f: st(f) for f in _OP_FIELDS})
 
 
 def _slice_op(stacked: DenseSectorOp, b: int) -> DenseSectorOp:
-    return DenseSectorOp(nnz_count=stacked.nnz_count,
-                         **{f: getattr(stacked, f)[b] for f in _OP_FIELDS})
+    return DenseSectorOp(nnz_count=stacked.nnz_count, **{
+        f: None if getattr(stacked, f) is None else getattr(stacked, f)[b]
+        for f in _OP_FIELDS})
 
 
 def _pad_vec(v_flat: np.ndarray, op: DenseSectorOp, du_p: int, dd_p: int
              ) -> np.ndarray:
-    """Flat sector vector -> padded [dd_p, du_p] with exact-zero pad."""
-    v = v_flat.reshape(op.dim_dw, op.dim_up)
-    return np.pad(v, ((0, dd_p - op.dim_dw), (0, du_p - op.dim_up)))
+    """Flat sector vector -> padded [(DimPh,) dd_p, du_p] with exact-zero
+    pad."""
+    v = v_flat.reshape(op.vshape)
+    pads = ((0, 0),) * (v.ndim - 2) + ((0, dd_p - op.dim_dw),
+                                       (0, du_p - op.dim_up))
+    return np.pad(v, pads)
 
 
 def lanczos_ground_state_bucket(
@@ -132,7 +150,8 @@ def lanczos_ground_state_bucket(
     sector in order, as in the JAX package.
     """
     b = len(ops)
-    du_p, dd_p, _, _ = bucket_key(ops[0])
+    du_p, dd_p, dim_ph, _ = bucket_key(ops[0])
+    vshape = (dd_p, du_p) if dim_ph == 1 else (dim_ph, dd_p, du_p)
     stacked = stack_ops([pad_dense_op_2d(o, du_p, dd_p) for o in ops],
                         device)
     dev = stacked.device
@@ -152,7 +171,7 @@ def lanczos_ground_state_bucket(
 
     v0 = torch.as_tensor(np.stack([start(i) for i in range(b)]),
                          dtype=dtype, device=dev)
-    prefix = torch.zeros((b, 0, dd_p, du_p), dtype=dtype, device=dev)
+    prefix = torch.zeros((b, 0) + vshape, dtype=dtype, device=dev)
     theta0 = torch.zeros((b, 0), dtype=dtype, device=dev)
     l = 0
     done: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
@@ -188,7 +207,7 @@ def lanczos_ground_state_bucket(
                                                matvec_dense, vecs)
             order = np.argsort(vals)
             vecs_h = vecs.double().cpu().numpy()
-            flat = np.stack([vecs_h[k, :ops[i].dim_dw, :ops[i].dim_up]
+            flat = np.stack([vecs_h[k][..., :ops[i].dim_dw, :ops[i].dim_up]
                              .reshape(-1) for k in order])
             done[i] = (np.asarray(vals)[order], flat)
         if len(done) == b:

@@ -382,8 +382,8 @@ def bs_sharded_ground_state(cfg, op: BlockSparseSectorOp, mesh: DwMesh,
     nat = shard_dense_op(DenseSectorOp(
         diag=op.diag, hup=op.hup, hdw=op.hdw, hup32=op.hup32,
         hdw32=op.hdw32, nnz_count=op.nnz_count), mesh, cfg)
-    # the top-off's residual floor is its apply's (diag._lanc_tol for the
-    # dense backend): f64 products, or mixed ones polished after
+    # the top-off's residual floor is its apply's (diag._lanc_tol): f64
+    # products, or mixed ones polished after
     floor = 1e-14 if nat.apply_nd is nat.exact_nd else 3e-6
     return sharded_dense_ground_state(
         nat, neigen, ncv, max(cfg.lanc_tolerance, floor),

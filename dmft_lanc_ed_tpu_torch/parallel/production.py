@@ -26,8 +26,9 @@ is the second stage of the sharded band-sparse solve
 (:mod:`.bs_sharded`): a Lanczos top-off from the B5 stage's vector and
 the f64 polish, through :func:`sharded_dense_ground_state`.
 
-Not ported: the sharded direct (matrix-free) backend, ROADMAP A5; phonon
-and Jx/Jp sectors raise where the dense operator is built (ROADMAP A6).
+Not ported: the sharded direct (matrix-free) backend, ROADMAP A5; the
+sharding of phonon and Jx/Jp sectors, which raise where the sharded
+operator is built (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -206,8 +207,12 @@ def shard_sector_op(cfg: EDConfig, sec, hloc, bath, h_basis,
         raise NotImplementedError(
             "the sharded direct backend (pad_direct_op, shard_direct_op, "
             "apply_direct_sharded) is not ported yet (ROADMAP A5)")
-    return shard_dense_op(build_dense_op(cfg, sec, hloc, bath, "cpu",
-                                         h_basis=h_basis), mesh, cfg)
+    op = build_dense_op(cfg, sec, hloc, bath, "cpu", h_basis=h_basis)
+    if op.ph_diag is not None or op.nd_a is not None:
+        raise NotImplementedError(
+            "dw-sharded phonon and Jx/Jp sectors are not ported yet "
+            "(ROADMAP A10); solve them without mesh_shape")
+    return shard_dense_op(op, mesh, cfg)
 
 
 def sharded_dense_ground_state(sop: ShardedSectorOp, neigen: int,

@@ -5,7 +5,7 @@ The call sequence inside `solve` mirrors ed_solve_single
 (ED_MAIN.f90:259-302):
 
     set bath -> diagonalize_impurity -> build GF -> observables
-             -> local_energy -> Dyson self-energy
+             -> local_energy -> Dyson self-energy -> chi, phonon GF
 
 on the solver's ``device`` — the card unless the caller asks for
 ``device="cpu"``; without a card the solver raises rather than fall back
@@ -18,8 +18,10 @@ impurity's coefficients `lambda_imp` (``hloc.decompose_hloc``). Each solve
 resets ``utils.kernel_stats`` and reports its matvecs, the nonzeros they
 applied and their rates over the diag + gf seconds as
 ``timings["kernel_*"]``; ``restore`` re-seeds a solver from the restart
-files ``io.write_all`` writes.
-Susceptibilities and phonons are not ported (ROADMAP A6) and raise.
+files ``io.write_all`` writes. ``chispin_flag`` / ``chidens_flag`` add
+the spin and charge susceptibilities (``chi.py``), phonons (``nph > 0``)
+the displacement GF; ``ed_diag_type="full"`` takes every one of them, and
+the GF, from the full spectrum.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from .bath_functions import g0and_bath
 from .config import EDConfig
 from .diag import DiagState, diagonalize_impurity
 from .eigenspace import StateList
-from .gf import GFData, HCache, build_gf_normal, build_sigma
+from .gf import GFData, HCache, build_gf_full, build_gf_normal, build_sigma
 from .ops.factory import resolve_device
 from .observables import (Observables, local_energy_impurity,
                           observables_impurity, zimp_simp)
@@ -76,6 +78,9 @@ class SolveResult:
     observables: Observables
     state_list: StateList
     gf: GFData
+    chi_spin: Optional[Dict] = None
+    chi_dens: Optional[Dict] = None
+    gf_phonon: Optional[object] = None
     timings: Dict[str, float] = field(default_factory=dict)
 
 
@@ -85,9 +90,6 @@ class EDSolver:
     def __init__(self, cfg: EDConfig, hloc: Optional[np.ndarray] = None,
                  h_basis: Optional[np.ndarray] = None,
                  lambda_imp: Optional[np.ndarray] = None, device="cuda"):
-        if cfg.chispin_flag or cfg.chidens_flag or cfg.dim_ph > 1:
-            raise NotImplementedError("susceptibilities and phonons are not "
-                                      "ported yet (ROADMAP A6)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.table = SectorTable(cfg)
@@ -147,7 +149,10 @@ class EDSolver:
         t0 = synced_time()
         hcache = HCache(cfg, self.table, self.hloc, bath, device=self.device,
                         h_basis=h_basis)
-        gf = build_gf_normal(cfg, self.table, hcache, state_list)
+        if cfg.ed_diag_type == "full":
+            gf = build_gf_full(cfg, self.table, state_list)
+        else:
+            gf = build_gf_normal(cfg, self.table, hcache, state_list)
         timings["gf"] = synced_time() - t0
 
         t0 = time.perf_counter()
@@ -166,6 +171,30 @@ class EDSolver:
         g0_real = g0and_bath(cfg, self.hloc, bath, zreal, h_basis).numpy()
         timings["sigma"] = time.perf_counter() - t0
         obs.zimp, obs.simp = zimp_simp(cfg, sigma_mats, self.wm)
+
+        chi_spin = chi_dens = gf_ph = None
+        if cfg.chipair_flag or cfg.chiexct_flag:
+            log.warning("chipair/chiexct susceptibilities are disabled in "
+                        "the reference live tree (ED_GREENS_FUNCTIONS.f90:"
+                        "85-89) and not computed here")
+        if cfg.chispin_flag or cfg.chidens_flag or cfg.dim_ph > 1:
+            from . import chi as chi_mod
+            full = cfg.ed_diag_type == "full"
+            t0 = synced_time()
+
+            def build(name):
+                if full:
+                    return getattr(chi_mod, f"full_build_{name}")(
+                        cfg, self.table, state_list)
+                return getattr(chi_mod, f"build_{name}")(
+                    cfg, self.table, hcache, state_list)
+            if cfg.chispin_flag:
+                chi_spin = build("chi_spin")
+            if cfg.chidens_flag:
+                chi_dens = build("chi_dens")
+            if cfg.dim_ph > 1:
+                gf_ph = build("gf_phonon")
+            timings["chi"] = synced_time() - t0
         timings["total"] = time.perf_counter() - t_all
         kernel_stats.seconds = timings["diag"] + timings["gf"]
         timings.update({f"kernel_{k}": v
@@ -174,7 +203,9 @@ class EDSolver:
         result = SolveResult(
             sigma_mats=sigma_mats, sigma_real=sigma_real,
             g_mats=g_mats, g_real=g_real, g0_mats=g0_mats, g0_real=g0_real,
-            observables=obs, state_list=state_list, gf=gf, timings=timings)
+            observables=obs, state_list=state_list, gf=gf,
+            chi_spin=chi_spin, chi_dens=chi_dens, gf_phonon=gf_ph,
+            timings=timings)
         self.last_result = result
         return result
 

@@ -93,10 +93,21 @@ def test_vo2_matches_reference():
 
 
 def test_vo2_with_phonons_raises():
-    with pytest.raises(NotImplementedError, match="A6"):
-        vo2.run_dmft(pt.EDConfig(norb=2, nbath=1, nph=2, w0_ph=0.5,
-                                 ed_backend="dense"), device="cpu",
-                     verbose=False)
+    """A phonon configuration of the VO2 driver (nph > 0, e-ph coupling)
+    no longer raises: it runs as the JAX driver does, loop 1 against the
+    JAX driver's and every loop against the JAX solve of its bath; the
+    loop's state carries the displacement GF."""
+    dials = dict(x1=0.3, x2=0.2, lam=1.5, delta=0.5)
+    kw = dict(norb=2, nbath=1, uloc=(1.0, 1.0), ust=0.5, nph=2,
+              g_ph=(0.3, 0.2), w0_ph=0.5)
+    res_p, res_j, cfg_j = _run_both(vo2, j_vo2, kw, 2, **dials)
+    delta = 0.5 + 0.1 * 0.2 ** 2
+    hloc = np.zeros((1, 1, 2, 2))
+    hloc[0, 0] = np.diag([-delta / 2, delta / 2])
+    check_against_reference(res_p, res_j, cfg_j, hloc, 2)
+    r1 = res_p.history[0]["result"]
+    assert r1.gf_phonon is not None
+    assert abs(r1.observables.ph_occ.sum() - 1.0) < 1e-8
 
 
 def test_bethe_afm_matches_reference():

@@ -170,14 +170,12 @@ def test_config_cli_values_parse_like_the_input_file():
 
 
 def test_unported_options_raise():
-    cfg = pt.read_input(None, norb=1, nbath=3, chispin_flag=True)
-    with pytest.raises(NotImplementedError):          # susceptibilities
-        pt.EDSolver(cfg, device="cpu")
+    # susceptibilities and ed_diag_type="full" run since ROADMAP A6
+    # (tests/test_torch_chi.py); the ROADMAP A5 options still raise
     cfg = pt.read_input(None, norb=1, nbath=3, lanc_dim_threshold=4)
     for bad in (dict(),                               # auto: ELL on the CPU
                 dict(ed_backend="ell"), dict(ed_backend="direct"),
-                dict(ed_backend="dense", lanc_method="dvdson"),
-                dict(ed_backend="dense", ed_diag_type="full")):
+                dict(ed_backend="dense", lanc_method="dvdson")):
         solver = pt.EDSolver(cfg.replace(**bad), device="cpu")
         with pytest.raises(NotImplementedError):
             solver.solve(solver.init_bath())

@@ -253,7 +253,8 @@ def test_writers_byte_identical(case, tmp_path):
 
 class _SyntheticChi:
     """Seeded arrays behind the susceptibility interface the writers read
-    (``matsubara``, ``imtime``, ``realaxis``), until chi.py is ported."""
+    (``matsubara``, ``imtime``, ``realaxis``): the writers alone, apart
+    from chi.py (whose files test_torch_chi.py holds)."""
 
     def __init__(self, cfg, seed):
         rng = np.random.default_rng(seed)

@@ -242,6 +242,80 @@ def test_gf_tridiag_diagonal_and_mixed_chains_replica(cuda):
     assert float((be_b[:, :8] - be_p[:, :8]).abs().max()) < 5e-5 * scale
 
 
+def _kanamori3_chi_solve(cuda, nbath, sqn, **kw):
+    """One T = 0 solve of the three-orbital Kanamori impurity with both
+    susceptibilities, restricted to the sector `sqn`: (solver, result)."""
+    from dmft_lanc_ed_tpu_torch.models import multiorb_kanamori as mk
+    cfg = pt.EDConfig(nbath=nbath, beta=100.0, lmats=64, lreal=16,
+                      chispin_flag=True, chidens_flag=True, ed_sectors=True,
+                      ed_sectors_shift=0, **mk.DEFAULTS, **kw)
+    solver = pt.EDSolver(cfg, np.zeros((1, 1, 3, 3)), device=cuda)
+    solver.diag_state.sector_hint = [pt.qn(*sqn)]
+    return solver, solver.solve(solver.init_bath())
+
+
+def test_chi_chains_through_b4_on_the_card(cuda):
+    """Every chi chain of a band-sparse sector through B4, 7 a launch (3
+    diagonal, 3 mixed, the total) beside the GF's 3; chi on iv within B4's
+    GF contract (2e-5 x max|chi|) of the dense f64 backend's solve on the
+    card. nbath = 1: the half-filled (3,3) sector of 400 states has one
+    ground state (at nbath = 2 the (4,4) ground state is four-fold
+    degenerate, and the two of them a solve keeps make chi depend on the
+    basis)."""
+    from dmft_lanc_ed_tpu_torch import chi as pchi
+    bc.reset_launch_counts()
+    _, res = _kanamori3_chi_solve(cuda, 1, (3, 3), ed_backend="pallas",
+                                  ed_batch_dim_max=100,
+                                  ed_gf_chain_min_dim=100)
+    k = res.state_list.size
+    assert k == 1
+    assert sorted(bc.chains_per_launch["gf_tridiag"]) == sorted(
+        [3 * k, 3 * k, 7 * k, 7 * k])
+    assert pchi.routing["spin"] == pchi.routing["dens"] == (7 * k, 0)
+    _, ref = _kanamori3_chi_solve(cuda, 1, (3, 3), ed_backend="dense",
+                                  ed_precision="f64")
+    assert abs(ref.state_list.emin - res.state_list.emin) <= 1e-9
+    vm = pt.solver.bosonic_grid(pt.EDConfig(beta=100.0, lmats=64))
+    for kind in ("chi_spin", "chi_dens"):
+        for key, want in getattr(ref, kind).items():
+            a = getattr(res, kind)[key].matsubara(100.0, vm)
+            b = want.matsubara(100.0, vm)
+            assert np.abs(a - b).max() <= 2e-5 * np.abs(b).max(), (kind, key)
+
+
+def test_gf_tridiag_seven_chi_chains_equal_each_alone(cuda):
+    """The 7 chi start vectors n_a|psi>, (n_a + n_b)|psi>, n|psi> of a
+    ground state of the (4,4) sector at nbath = 2 (15,876 states) in one
+    B4 launch: each chain's bits equal the chain run alone, and the batch
+    agrees with the plain version (5e-5 x scale) over the first 8 steps
+    (at nbath = 1 the total chain n|psi> of the (3,3) sector exhausts its
+    Krylov space at step 6, beta ~ 1e-11 in f64, after which two runs
+    follow their rounding)."""
+    from dmft_lanc_ed_tpu_torch.chi import _diag_op_excite, _n_op
+    solver, res = _kanamori3_chi_solve(cuda, 2, (4, 4), ed_backend="dense")
+    cfg, st = solver.cfg, res.state_list.states[0]
+    sec = solver.table.sector(st.qn)
+    h = pt.build_sector_hamiltonian(cfg, sec, solver.hloc,
+                                    pt.unpack_bath(cfg, solver.init_bath()))
+    op = build_blocksparse_op(h, cuda)
+    ops = [_n_op(cfg)(sec, a) for a in range(3)]
+    ops += [ops[a] + ops[b] for a in range(3) for b in range(a + 1, 3)]
+    ops.append(sum(ops[1:3], ops[0]))
+    vs = np.stack([_diag_op_excite(sec, st.vec, o) for o in ops])
+    vs /= np.linalg.norm(vs, axis=1)[:, None]
+    vb = to_padded(op, vs.reshape(7, op.dim_dw, op.dim_up))
+    bc.reset_launch_counts()
+    al_b, be_b = bc.gf_tridiag_call(op, vb, 48)
+    assert bc.chains_per_launch["gf_tridiag"] == [7]
+    for i in range(7):
+        al_1, be_1 = bc.gf_tridiag_call(op, vb[i:i + 1].contiguous(), 48)
+        assert torch.equal(al_b[i], al_1[0]) and torch.equal(be_b[i], be_1[0])
+    al_p, be_p = bc.gf_tridiag_batch_plain(op.pop, vb, 48)
+    scale = max(1.0, float(al_p.abs().max()))
+    assert float((al_b[:, :8] - al_p[:, :8]).abs().max()) < 5e-5 * scale
+    assert float((be_b[:, :8] - be_p[:, :8]).abs().max()) < 5e-5 * scale
+
+
 def test_kernel_wrappers_refuse_bad_inputs(cuda):
     op = _op(cuda, 6, (3, 3))
     v0 = _starts(op, 1)[0]
