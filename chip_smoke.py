@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12]
+    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12,13,14]
                           [--ghost-tol X]
 
 ``--ghost-tol`` replaces ``ops.bs_chain._GHOST_TOL`` for the run: phase 4
@@ -16,7 +16,7 @@ nonzero without a result line):
 1. build the CUDA kernels from ``dmft_lanc_ed_tpu_torch/csrc`` (one nvcc
    per source, all started together; each one's seconds and warnings are
    printed, and ptxas's C7515, wgmma serialized, fails the phase), while
-   the host ARPACK oracles of phases 2-7 and 9-12 run in a thread.
+   the host ARPACK oracles of phases 2-7 and 9-14 run in a thread.
 2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag, B1 the
    per-call matvec, trimmed and whole-window) against its plain PyTorch
    version at the 854k-state (6,6) sector of nbath = 11, with the
@@ -175,9 +175,30 @@ nonzero without a result line):
    (c) full ED (norb 1, nbath 3, beta 10) against the finite-T Krylov
    solve of every state on the card in f64: Egs 1e-9, G(iw) 1e-5, dens
    1e-6, chi(iv) 1e-8. Each part's seconds are printed.
+13. the lattice bank at 853,776 states: ``models.hm_2b_afo.run_dmft``, the
+   two-band model of tests/test_dmft.py:106 (uloc 1, ust 0.25, sb_field
+   0.1, wband (1, 0.5), delta 0) at nbath = 5, T = 0, one loop, two
+   inequivalent sites on the card in the default configuration: site B's
+   initial bath is site A's spin flip, so host ARPACK of site A's (6,6)
+   (built in phase 1's thread) is both sites' oracle: each site's lowest
+   (6,6) energy in its ``diag_log`` within 1e-10; mag_A = -mag_B within
+   1e-6; dens = 1 within 1e-6; every chain seed at its eta_target; B2, B3
+   and B4 launched; both sites on a CUDA device; finite outputs; the
+   loop's per-site fit again with its files (suffixes _ineq0001,
+   _ineq0002) into a temporary directory. Each site's diag / gf / fit
+   seconds are printed beside the card's name and power limit.
+14. the ELL, direct and Davidson backends at phase 3's sector: the ELL and
+   the direct applies against the f64-exact band apply on 3 random
+   vectors (max|d| / max|Hv| <= 1e-12) and their ms an apply (torch ops,
+   no kernel row); the f64 Lanczos ground state over each and Davidson
+   over ELL against ARPACK (1e-10); then two ``EDSolver.solve`` restricted
+   to (6,6), one state: ``ed_sparse_h=False`` (the log must show the
+   direct backend) and ``lanc_method="dvdson"`` in the default
+   configuration (Davidson over the band-sparse mixed apply, then the f64
+   polish), each Egs within 1e-10.
 
 The chain kernels' launches and steps of the kernel line are those of
-phases 4, 5, 9, 10 and 11.
+phases 4, 5, 9, 10, 11, 13 and 14.
 
 The line before the last is the kernel table as JSON. Each kernel's bound
 is the larger of its FP32 operations over 67 TFLOP/s and its bytes, each
@@ -189,10 +210,11 @@ tensor-core peak (three passes, E3's 1pass one over the same bytes; the
 rest FP32), B1, B4, B5 and E1 their six passes there.
 A chain kernel's
 ``launches`` are chain launches and its ``steps`` the steps they ran
-(phases 4, 5, 9 and 10 for B2-B4); its ``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
+(phases 4, 5, 9, 10, 11, 13 and 14 for B2-B4); its ``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -2057,10 +2079,248 @@ def phase12(oracles):
     say(f"phase 12: {time.perf_counter() - t_all:.1f} s ({CARD})")
 
 
+# phase 13: the lattice bank, the two-sublattice AFO driver at the 854k sector
+P13_NBATH = 5             # Ns = 2 x (1 + 5) = 12: (6,6) holds 853,776 states
+P13_DIALS = dict(wband=(1.0, 0.5), delta=0.0)   # tests/test_dmft.py:106
+
+
+def _p13_model():
+    """cfg of afo2-854k: the JAX test's two-band AFO model (uloc 1, ust
+    0.25, sb_field 0.1) at nbath = 5, T = 0, one loop, in the default
+    configuration."""
+    import dmft_lanc_ed_tpu_torch as pt
+    return pt.EDConfig(norb=2, nspin=2, nbath=P13_NBATH, uloc=(1.0, 1.0),
+                       ust=0.25, sb_field=0.1, beta=100.0, lmats=1024,
+                       lfit=256, lreal=64, nloop=1)
+
+
+def _p13_bath_a(cfg):
+    """Site A's initial packed bath: init_bath staggered by +sb_field (site
+    B's is its spin flip, sign -1)."""
+    import dmft_lanc_ed_tpu_torch as pt
+    return pt.break_symmetry_bath(cfg, pt.pack_bath(cfg, pt.init_bath(cfg)),
+                                  cfg.sb_field, sign=1.0)
+
+
+def phase13_oracle():
+    """Phase 13's host side, run in phase 1's thread: ARPACK of site A's
+    (6,6) sector at its initial bath. The spin flip maps (6,6) onto itself
+    and site A's bath onto site B's, so it is both sites' oracle."""
+    import dmft_lanc_ed_tpu_torch as pt
+    cfg = _p13_model()
+    h, sec = _sector_h(cfg, np.zeros((2, 2, 2, 2)),
+                       pt.unpack_bath(cfg, _p13_bath_a(cfg)),
+                       pt.qn(HALF, HALF))
+    return dict(e0=host_ground_state(h, sec, " afo2 site A (6,6)")[0],
+                dim=sec.dim)
+
+
+def phase13(oracle):
+    """afo2-854k: hm_2b_afo.run_dmft's loop 1, two inequivalent sites on
+    the card, gated against host ARPACK of (6,6); then the loop's per-site
+    fit again with its files into a temporary directory."""
+    import tempfile
+    import torch
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.models import hm_2b_afo
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    cfg = _p13_model()
+    if cfg.ed_backend != "auto" or not cfg.ed_batch_sectors:
+        raise AssertionError("phase 13 must run the default configuration")
+    t_all = time.perf_counter()
+    bc.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = hm_2b_afo.run_dmft(cfg, device=DEVICE, verbose=False, **P13_DIALS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, steps, seeds, chains = _chain_counts()
+    ent = res.history[0]
+    table = pt.SectorTable(cfg)
+    bath_a = _p13_bath_a(cfg)
+    bath_b = pt.break_symmetry_bath(cfg, pt.pack_bath(cfg, pt.init_bath(
+        cfg)), cfg.sb_field, sign=-1.0)
+    large, des = 0, []
+    say(f"phase 13 afo2-854k: hm_2b_afo.run_dmft norb=2 nbath={cfg.nbath}, "
+        f"2 sites, 1 loop in {dt:.1f} s ({CARD}); (6,6) dim "
+        f"{oracle['dim']}, ARPACK {oracle['e0']:+.12f}")
+    for i, site in enumerate(ent["sites"]):
+        log66 = [e for q, e, _ in site["diag_log"] if q == pt.qn(HALF, HALF)]
+        e66 = float(np.min(log66[0])) if log66 else float("nan")
+        des.append(abs(e66 - oracle["e0"]))
+        large += sum(1 for q, _, k in site["diag_log"]
+                     if k and table.dim(q) > cfg.ed_batch_dim_max)
+        say(f"  site {'AB'[i]} on {site['device']}: diag {site['diag']:.2f} "
+            f"s, gf {site['gf']:.2f} s, fit {site['fit']:.2f} s; Egs "
+            f"{site['egs']:+.12f}, (6,6) lowest {e66:+.12f}, |dE| "
+            f"{des[-1]:.3e} (gate 1e-10); dens {site['dens']}, mag "
+            f"{ent['mag'][i]}")
+    say(f"  launches {counts}, steps {steps}, chain seeds {seeds} over "
+        f"{large} band-sparse sectors, chains of each B4 launch {chains}")
+    if not (ent["bath"][0].tobytes() == bath_a.tobytes()
+            and ent["bath"][1].tobytes() == bath_b.tobytes()):
+        raise AssertionError("loop 1 did not start from the staggered seed")
+    if not max(des) <= 1e-10:
+        raise AssertionError("a site's (6,6) misses the ARPACK energy")
+    if any(not s["device"].startswith("cuda") for s in ent["sites"]):
+        raise AssertionError("a site was not solved on the card")
+    if any(counts.get(k, 0) <= 0 for k in ("tridiag", "cheb", "gf_tridiag")):
+        raise AssertionError(f"a chain kernel never launched: {counts}")
+    if seeds["missed"] > 0 or seeds["reached"] < large:
+        raise AssertionError(f"a large sector missed the chain seed or its "
+                             f"eta_target: {seeds}, {large} sectors")
+    mag, dens = np.asarray(ent["mag"]), np.asarray(ent["dens"])
+    if not np.abs(mag[0] + mag[1]).max() <= 1e-6:
+        raise AssertionError(f"mag_A != -mag_B: {mag}")
+    if not np.abs(dens - 1.0).max() <= 1e-6:
+        raise AssertionError(f"not half filled: {dens}")
+    outs = [res.sigma_mats, res.sigma_real, res.g_mats, res.weiss, res.bath]
+    if not all(np.all(np.isfinite(x)) for x in outs):
+        raise AssertionError("non-finite DMFT output")
+    # the loop's per-site fit again, with its files
+    bank = pt.LatticeSolver(cfg, 2, hloc=np.zeros((2, 2, 2, 2, 2)),
+                            device=DEVICE)
+    with tempfile.TemporaryDirectory() as d:
+        refit = bank.fit_baths(res.weiss, ent["bath"], outdir=d)
+        names = sorted(os.listdir(d))
+    per_site = [[n for n in names if n.endswith(f"_ineq{i:04d}.ed")]
+                for i in (1, 2)]
+    say(f"  files: {len(names)} written, {[len(p) for p in per_site]} with "
+        f"_ineq0001 / _ineq0002; the refit equals the loop's bath: "
+        f"{refit.tobytes() == res.bath.tobytes()}")
+    if not all(per_site):
+        raise AssertionError(f"the per-site fit files: {names}")
+    say(f"phase 13: {time.perf_counter() - t_all:.1f} s ({CARD})")
+    return counts, steps, dt
+
+
+# phase 14: the stored, direct and Davidson backends at the 854k sector
+P14_VECS = 3
+
+
+def _p14_cfg(**kw):
+    """A solve of phase 3's model restricted to (6,6), one state."""
+    import dmft_lanc_ed_tpu_torch as pt
+    return pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,), beta=100.0,
+                       lmats=1024, lreal=64, ed_sectors=True,
+                       ed_sectors_shift=0, lanc_nstates_sector=1, **kw)
+
+
+class _LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def phase14(cfg, sec, h, op, e0):
+    """backends854k: the ELL and direct applies against the f64-exact band
+    apply, their f64 Lanczos and the Davidson ground states against host
+    ARPACK, then two restricted solves: ed_sparse_h=F (the direct backend)
+    and lanc_method="dvdson" in the default configuration."""
+    import torch
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch import diag as pdiag
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import (matvec_bs_exact_flat,
+                                                        matvec_bs_flat)
+    from dmft_lanc_ed_tpu_torch.ops.davidson import (davidson_ground_state,
+                                                     op_diag_flat)
+    from dmft_lanc_ed_tpu_torch.ops.direct import (build_direct_op,
+                                                   matvec_direct_flat)
+    from dmft_lanc_ed_tpu_torch.ops.lanczos import lanczos_ground_state
+    from dmft_lanc_ed_tpu_torch.ops.matvec import ell_op, matvec_flat
+    t_all = time.perf_counter()
+    dim = sec.dim
+    eop = ell_op(h, DEVICE)
+    dop = build_direct_op(cfg, sec, np.zeros((1, 1, 1, 1)),
+                          pt.init_bath(cfg), DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    x = torch.randn((P14_VECS, dim), generator=gen, dtype=torch.float64,
+                    device=DEVICE)
+    y_ref = torch.stack([matvec_bs_exact_flat(op, xi) for xi in x])
+    scale = float(y_ref.abs().max())
+    rows = []
+    for name, o, apply in (("ELL", eop, matvec_flat),
+                           ("direct", dop, matvec_direct_flat)):
+        rel = float((apply(o, x) - y_ref).abs().max()) / scale
+        ms = cuda_ms(lambda: apply(o, x[0]), reps=10)
+        rows.append((name, o, apply, rel, ms))
+        say(f"phase 14 backends854k {name}: {P14_VECS} vectors, max|d| / "
+            f"max|Hv| {rel:.3e} (gate 1e-12); {ms:.3f} ms an apply "
+            f"({CARD}); nnz {o.nnz}")
+    if not all(r[3] <= 1e-12 for r in rows):
+        raise AssertionError("an apply differs from the f64 band apply")
+    solves = []
+    for name, o, apply, _, _ in rows:
+        t0 = time.perf_counter()
+        ev, _ = lanczos_ground_state(o, apply, dim, 1, ncv=48, tol=1e-12)
+        solves.append((f"Lanczos over {name}", float(ev[0]),
+                       time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    ev, _ = davidson_ground_state(eop, matvec_flat, dim, 1,
+                                  op_diag_flat(eop), ncv=48, tol=1e-12)
+    solves.append(("Davidson over ELL", float(ev[0]),
+                   time.perf_counter() - t0))
+    for name, e, dt in solves:
+        say(f"  {name}: E0 {e:+.12f}, |dE| vs ARPACK {abs(e - e0):.3e} "
+            f"(gate 1e-10), {dt:.2f} s")
+    if not all(abs(e - e0) <= 1e-10 for _, e, _ in solves):
+        raise AssertionError("a backend's ground state misses ARPACK")
+    del eop, dop, x, y_ref
+    # the main path: EDSolver.solve with ed_sparse_h=F, then dvdson
+    handler = _LogLines()
+    logger = logging.getLogger("dmft_lanc_ed_tpu_torch")
+    logger.addHandler(handler)
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    dav_applies = []
+    dav = pdiag.davidson_ground_state
+
+    def counted(op_, apply_, *a, **k):
+        dav_applies.append(apply_)
+        return dav(op_, apply_, *a, **k)
+    pdiag.davidson_ground_state = counted
+    bc.reset_launch_counts()
+    try:
+        r_dir, t_dir = _p7_solve(_p14_cfg(ed_sparse_h=False), DEVICE)
+        r_dav, t_dav = _p7_solve(_p14_cfg(lanc_method="dvdson"), DEVICE)
+    finally:
+        pdiag.davidson_ground_state = dav
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    counts, steps, _, chains = _chain_counts()
+    took_direct = any("direct (matrix-free) backend" in ln
+                      for ln in handler.lines)
+    for name, r, dt in (("ed_sparse_h=F", r_dir, t_dir),
+                        ("lanc_method=dvdson", r_dav, t_dav)):
+        say(f"  EDSolver.solve {name} at (6,6): Egs {r.state_list.emin:+.12f}"
+            f", |dE| {abs(r.state_list.emin - e0):.3e} (gate 1e-10), {dt:.2f} "
+            f"s (diag {r.timings['diag']:.2f}, gf {r.timings['gf']:.2f}); "
+            f"dens {r.observables.dens}")
+    say(f"  the direct backend taken: {took_direct}; Davidson over "
+        f"{[f.__name__ for f in dav_applies]}; launches {counts}, steps "
+        f"{steps}, chains of each B4 launch {chains}")
+    if not (abs(r_dir.state_list.emin - e0) <= 1e-10
+            and abs(r_dav.state_list.emin - e0) <= 1e-10):
+        raise AssertionError("a restricted solve misses the ARPACK energy")
+    if not took_direct:
+        raise AssertionError("ed_sparse_h=F did not take the direct backend")
+    if dav_applies != [matvec_bs_flat]:
+        raise AssertionError("dvdson did not run over the band-sparse apply")
+    for r in (r_dir, r_dav):
+        if not (np.all(np.isfinite(r.g_mats))
+                and np.all(np.isfinite(r.sigma_mats))):
+            raise AssertionError("non-finite solve output")
+    say(f"phase 14: {time.perf_counter() - t_all:.1f} s ({CARD})")
+    return counts, steps
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12")
+                    default="0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12,13,14")
     ap.add_argument("--ghost-tol", type=float, default=None)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2088,12 +2348,13 @@ def main():
         rows, counts, steps = [], {}, {}
         e_gs = serial = None
         e0 = arpack = p9_oracle = p10_oracle = p12_oracle = None
+        p13_oracle = None
         # the host oracles run in a thread while nvcc builds
         oracle = ThreadPoolExecutor(1)
-        on_854k = phases & {"2", "2s", "3", "3b", "6", "7", "8"}
+        on_854k = phases & {"2", "2s", "3", "3b", "6", "7", "8", "14"}
         if on_854k:
             cfg, sec, h, op = sector_854k()
-            if phases & {"2", "3", "3b", "7"}:
+            if phases & {"2", "3", "3b", "7", "14"}:
                 arpack = oracle.submit(host_ground_state, h, sec)
         if "9" in phases:
             p9_oracle = oracle.submit(phase9_oracles)
@@ -2102,6 +2363,8 @@ def main():
             p10_oracle = oracle.submit(phase10_oracle)
         if "12" in phases:
             p12_oracle = oracle.submit(phase12_oracles)
+        if "13" in phases:
+            p13_oracle = oracle.submit(phase13_oracle)
         if "1" in phases:
             phase1()
         if on_854k:
@@ -2123,6 +2386,8 @@ def main():
                 rows += r8
                 counts.update(c8)
                 steps.update(s8)
+            if "14" in phases:
+                p14 = phase14(cfg, sec, h, op, e0)
             del op
             _SECTORS.clear()
         if "4" in phases:
@@ -2150,12 +2415,16 @@ def main():
             later.append(phase10(p10_oracle.result()))
         if "11" in phases:
             later.append(phase11(p10_oracle.result()))
+        if "12" in phases:
+            phase12(p12_oracle.result())
+        if "13" in phases:
+            later.append(phase13(p13_oracle.result()))
+        if "14" in phases:
+            later.append(p14 + (None,))
         for c_n, s_n, _ in later:
             for tot, add in ((counts, c_n), (steps, s_n)):
                 for k, n in add.items():
                     tot[k] = tot.get(k, 0) + n
-        if "12" in phases:
-            phase12(p12_oracle.result())
         oracle.shutdown()
     except Exception:
         traceback.print_exc()

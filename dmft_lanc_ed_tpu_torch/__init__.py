@@ -30,5 +30,6 @@ from .hamiltonian import (SectorHamiltonian, build_sector_hamiltonian,  # noqa: 
 from .hloc import decompose_hloc, h_from_sym  # noqa: E402
 from .solver import EDSolver, SolveResult, matsubara_grid, real_grid  # noqa: E402
 from .fit import chi2_fitgf  # noqa: E402
+from .lattice import LatticeResult, LatticeSolver  # noqa: E402
 
 __version__ = "0.1.0"

@@ -23,8 +23,11 @@ dense operator (parallel/production.py), each choice logged. Every rank
 ends with the same states.
 
 ``ed_diag_type="full"`` diagonalizes every sector completely by host
-LAPACK (:func:`_diag_full`) and keeps every state. Not ported yet, and
-raising: ``lanc_method="dvdson"``.
+LAPACK (:func:`_diag_full`) and keeps every state. ``lanc_method="dvdson"``
+solves each serial Krylov sector by preconditioned Davidson
+(ops/davidson.py) over the sector's production apply, with the f64 polish
+where that apply is mixed; the batched and sharded sectors keep their
+Lanczos solves, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from .ops.blocksparse import (BlockSparseSectorOp, build_blocksparse_op,
                               from_padded, matvec_bs_exact_padded,
                               matvec_bs_mixed_padded, matvec_bs_padded,
                               to_padded)
+from .ops.davidson import davidson_ground_state, op_diag_flat
 from .ops.dense import build_dense_op
 from .ops.bs_chain import _K_BUCKETS, chain_applicable, ground_state_seed
 from .ops.factory import (apply_is_exact, exact_apply, make_sector_op,
@@ -216,12 +220,6 @@ def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
     return unpad_all(vals, vecs_p)
 
 
-def _check_ported(cfg: EDConfig) -> None:
-    if cfg.lanc_method == "dvdson":
-        raise NotImplementedError("lanc_method='dvdson' is not ported yet "
-                                  "(ROADMAP A5)")
-
-
 def _sharded_ground_state(cfg: EDConfig, sqn, sec, hloc, bath, h_basis,
                           mesh, dim: int, neigen: int, ncv: int, device):
     """A Krylov sector solved dw-sharded over the mesh (the reference's
@@ -258,7 +256,6 @@ def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
     device = resolve_device(device)
     if cfg.ed_diag_type == "full":
         return _diag_full(cfg, table, hloc, bath, h_basis)
-    _check_ported(cfg)
     ctl = ctl or DiagState(lanc_nstates_total=cfg.lanc_nstates_total)
     finite_t = cfg.finite_t
     state_list = StateList(
@@ -295,11 +292,19 @@ def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
                                           h_basis=h_basis)
             ncv = min(dim, cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add)
             ncv = max(ncv, 2 * neigen + 16)
-            if isinstance(op, BlockSparseSectorOp):
+            polish = None if apply_is_exact(op_apply) else exact_apply(op)
+            if cfg.lanc_method == "dvdson":
+                # Davidson with diagonal preconditioning (sp_dvdson_eigh,
+                # ED_DIAG.f90:189-204)
+                evals, evecs = davidson_ground_state(
+                    op, op_apply, dim, neigen, op_diag_flat(op),
+                    ncv=min(ncv, dim),
+                    tol=_lanc_tol(cfg, apply_is_exact(op_apply)),
+                    dtype=torch.float64, polish_apply=polish)
+            elif isinstance(op, BlockSparseSectorOp):
                 evals, evecs = _blocksparse_ground_state(
                     cfg, op, dim, neigen, min(ncv, dim))
             else:
-                polish = None if apply_is_exact(op_apply) else exact_apply(op)
                 evals, evecs = lanczos_ground_state(
                     op, op_apply, dim, neigen, ncv=min(ncv, dim),
                     tol=_lanc_tol(cfg, apply_is_exact(op_apply)),

@@ -176,25 +176,35 @@ def _displacement_pdf(rho_ph: Array, x: Array) -> Array:
     return np.einsum("pq,px,qx->x", rho_ph, phi, phi)
 
 
+def _orbital_pairs(cfg: EDConfig):
+    """The (a, b) of <c^+_a c_b> a sector can hold. In an orbital-resolved
+    sector (ed_total_ud=F) each orbital's up and down counts are conserved,
+    so <c^+_a c_b> is 0 for a != b: the hop's image lies outside the
+    sector's composite basis, and only the diagonal is taken. (The JAX
+    package searches the image in that basis and fails with an IndexError,
+    ROADMAP C12.)"""
+    norb = cfg.norb
+    if not cfg.ed_total_ud:
+        return [(a, a) for a in range(norb)]
+    return [(a, b) for a in range(norb) for b in range(norb)]
+
+
 def _density_matrix(cfg: EDConfig, sec: Sector, v: np.ndarray) -> Array:
     """<c^+_{a s} c_{b s}> (single_particle_density_matrix), host gathers."""
     norb = cfg.norb
     dm = np.zeros((cfg.nspin, norb, norb))
     for s in range(cfg.nspin):
         states = sec.states_up[0] if s == 0 else sec.states_dw[0]
-        for a in range(norb):
-            for b in range(norb):
-                rows, cols, vals = hop_entries(states, a, b, 1.0)
-                if len(rows) == 0:
-                    continue
-                if s == 0:
-                    dm[s, a, b] += float(np.sum(
-                        v[:, :, rows] * vals[None, None, :]
-                        * v[:, :, cols]))
-                else:
-                    dm[s, a, b] += float(np.sum(
-                        v[:, rows, :] * vals[None, :, None]
-                        * v[:, cols, :]))
+        for a, b in _orbital_pairs(cfg):
+            rows, cols, vals = hop_entries(states, a, b, 1.0)
+            if len(rows) == 0:
+                continue
+            if s == 0:
+                dm[s, a, b] += float(np.sum(
+                    v[:, :, rows] * vals[None, None, :] * v[:, :, cols]))
+            else:
+                dm[s, a, b] += float(np.sum(
+                    v[:, rows, :] * vals[None, :, None] * v[:, cols, :]))
     return dm
 
 
@@ -271,13 +281,12 @@ def _density_matrix_dw_only(cfg, sec, v) -> Array:
     norb = cfg.norb
     dm = np.zeros((norb, norb))
     states = sec.states_dw[0]
-    for a in range(norb):
-        for b in range(norb):
-            rows, cols, vals = hop_entries(states, a, b, 1.0)
-            if len(rows) == 0:
-                continue
-            dm[a, b] += float(np.sum(
-                v[:, rows, :] * vals[None, :, None] * v[:, cols, :]))
+    for a, b in _orbital_pairs(cfg):
+        rows, cols, vals = hop_entries(states, a, b, 1.0)
+        if len(rows) == 0:
+            continue
+        dm[a, b] += float(np.sum(
+            v[:, rows, :] * vals[None, :, None] * v[:, cols, :]))
     return dm
 
 

@@ -1,17 +1,19 @@
 """Sector-operator factory (port of ``dmft_lanc_ed_tpu/ops/factory.py``).
 
 ``make_sector_op`` returns an (op, apply_fn) pair chosen by
-cfg.ed_backend / cfg.ed_precision and the device:
+cfg.ed_backend / cfg.ed_sparse_h / cfg.ed_precision and the device:
 
 - "pallas" : the band-sparse operator (ops/blocksparse.py) whose Krylov
              chains run the hand-written CUDA kernels (ops/bs_chain.py);
              logged fallback to "dense" where it does not apply
 - "dense"  : dense tensor-product factors, torch matmuls
+- "ell"    : the stored ELL factor tables, row gathers (ops/matvec.py)
+- "direct" : matrix-free, the connectivity recomputed from the state masks
+             each apply (ops/direct.py); logged fallback to "ell" where
+             the masks exceed its 32 bits
 - "auto"   : resolves by device, as the JAX package resolves by platform:
-             "pallas" on CUDA, "ell" on the CPU
-
-The "ell" and "direct" backends (and lanc_method="dvdson") are not ported
-yet (ROADMAP A5) and raise.
+             "pallas" on CUDA, "ell" on the CPU; ed_sparse_h=F dials
+             "direct" (ED_INPUT_VARS.f90:151)
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from ..hamiltonian import build_sector_hamiltonian
 from ..sectors import Sector
 from .dense import (DenseSectorOp, build_dense_op, matvec_dense_flat,
                     matvec_dense_mixed_flat)
+from .direct import MASK_BITS, build_direct_op, matvec_direct_flat
+from .matvec import build_ell_op, matvec_flat
 
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
 
@@ -86,18 +90,17 @@ def exact_apply(op) -> Optional[Callable]:
     return None
 
 
-def _not_ported(backend: str):
-    return NotImplementedError(
-        f"ed_backend={backend!r} is not ported yet (ROADMAP A5); use "
-        "ed_backend='pallas' or 'dense'")
+def direct_supported(cfg: EDConfig) -> bool:
+    """Whether the direct backend covers the sector masks: both QN schemes
+    are (orbital-resolved sectors carry composite masks over all levels,
+    sectors.py), up to the 32 levels of its int64 SWAR popcount."""
+    return cfg.ns <= MASK_BITS
 
 
 def make_sector_op(cfg: EDConfig, sec: Sector, hloc: np.ndarray, bath: Bath,
                    device, h_basis: Optional[np.ndarray] = None
                    ) -> Tuple[object, Callable]:
     backend = resolve_backend(cfg, device)
-    if backend in ("ell", "direct"):
-        raise _not_ported(backend)
     if backend == "pallas":
         from .blocksparse import (blocksparse_applicable, build_blocksparse_op,
                                   matvec_bs_flat)
@@ -111,4 +114,17 @@ def make_sector_op(cfg: EDConfig, sec: Sector, hloc: np.ndarray, bath: Bath,
     if backend == "dense":
         op = build_dense_op(cfg, sec, hloc, bath, device, h_basis=h_basis)
         return op, _DENSE_APPLY[resolve_precision(cfg, device)]
+    if backend == "direct":
+        if direct_supported(cfg):
+            log.info("sector %s: direct (matrix-free) backend",
+                     (sec.nup, sec.ndw))
+            return (build_direct_op(cfg, sec, hloc, bath, device,
+                                    h_basis=h_basis), matvec_direct_flat)
+        log.warning("ed_backend=direct: %d levels exceed the direct "
+                    "backend's %d-bit masks; falling back to stored ELL",
+                    cfg.ns, MASK_BITS)
+        backend = "ell"
+    if backend == "ell":
+        return (build_ell_op(cfg, sec, hloc, bath, device, h_basis=h_basis),
+                matvec_flat)
     raise ValueError(f"unknown ed_backend {cfg.ed_backend!r}")

@@ -206,7 +206,7 @@ def shard_sector_op(cfg: EDConfig, sec, hloc, bath, h_basis,
     if resolve_backend(cfg, mesh.device) == "direct":
         raise NotImplementedError(
             "the sharded direct backend (pad_direct_op, shard_direct_op, "
-            "apply_direct_sharded) is not ported yet (ROADMAP A5)")
+            "apply_direct_sharded) is not ported yet (ROADMAP A10)")
     op = build_dense_op(cfg, sec, hloc, bath, "cpu", h_basis=h_basis)
     if op.ph_diag is not None or op.nd_a is not None:
         raise NotImplementedError(

@@ -125,6 +125,16 @@ class EDSolver:
             self.cfg, lambda_imp=self.lambda_imp, h_basis=self.h_basis))
 
     def solve(self, bath) -> SolveResult:
+        """One impurity solve on the solver's device. On a card that is not
+        the current one the solve runs with it made current: the kernels
+        launch on the current device's stream, and CUDA refuses a launch
+        into another device's stream."""
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                return self._solve(bath)
+        return self._solve(bath)
+
+    def _solve(self, bath) -> SolveResult:
         cfg = self.cfg
         t_all = time.perf_counter()
         nsym = self.h_basis.shape[0] if self.h_basis is not None else None

@@ -170,12 +170,19 @@ def test_config_cli_values_parse_like_the_input_file():
 
 
 def test_unported_options_raise():
-    # susceptibilities and ed_diag_type="full" run since ROADMAP A6
-    # (tests/test_torch_chi.py); the ROADMAP A5 options still raise
-    cfg = pt.read_input(None, norb=1, nbath=3, lanc_dim_threshold=4)
-    for bad in (dict(),                               # auto: ELL on the CPU
-                dict(ed_backend="ell"), dict(ed_backend="direct"),
-                dict(ed_backend="dense", lanc_method="dvdson")):
-        solver = pt.EDSolver(cfg.replace(**bad), device="cpu")
-        with pytest.raises(NotImplementedError):
-            solver.solve(solver.init_bath())
+    # ROADMAP A5 landed (the ELL and direct backends, lanc_method="dvdson":
+    # tests/test_torch_backends.py); what still raises is A10's: the
+    # sharded direct backend and dw-sharded phonon and Jx/Jp sectors
+    from types import SimpleNamespace
+    from dmft_lanc_ed_tpu_torch.parallel.production import shard_sector_op
+    mesh = SimpleNamespace(device=torch.device("cpu"), size=2)
+    for kw in (dict(norb=1, nbath=3, ed_sparse_h=False),
+               dict(norb=1, nbath=3, ed_backend="direct"),
+               dict(norb=1, nbath=2, nph=2, g_ph=(0.3,), w0_ph=0.5),
+               dict(norb=2, nbath=1, uloc=(2.0, 2.0), ust=1.0, jh=0.3,
+                    jx=0.3, jp=0.3)):
+        cfg = pt.read_input(None, **kw)
+        sec = pt.SectorTable(cfg).sector(pt.qn(1, 1))
+        hloc = np.zeros((1, 1, cfg.norb, cfg.norb))
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            shard_sector_op(cfg, sec, hloc, pt.init_bath(cfg), None, mesh)

@@ -165,9 +165,9 @@ def test_input_file_roundtrip(tmp_path):
 
 def test_eigenvalues_list_and_histogram_files(tmp_path):
     """eigenvalues_list.ed (per-sector appended spectra) and the finite-T
-    histogram_states.ed (ED_DIAG.f90:265-270,530-546). The reference
-    test's last check, the direct operator's nonzeros, waits for
-    ops/direct.py (ROADMAP A5)."""
+    histogram_states.ed (ED_DIAG.f90:265-270,530-546), and the reference
+    test's last check: the direct operator's nonzero count is set (its
+    kernel_stats observability) and equals the JAX package's."""
     cfg = pt.EDConfig(ed_backend="dense", **CASES["finite_t"])
     s = pt.EDSolver(cfg, np.zeros((1, 1, 1, 1)), device="cpu")
     res = s.solve(s.init_bath())
@@ -184,6 +184,16 @@ def test_eigenvalues_list_and_histogram_files(tmp_path):
     hist = np.loadtxt(tmp_path / "histogram_states.ed")
     assert hist.shape == (len(table.all_qns()), 3)
     assert hist[:, 2].sum() == res.state_list.size
+
+    from dmft_lanc_ed_tpu.ops.direct import build_direct_op as j_direct
+    from dmft_lanc_ed_tpu_torch.ops.direct import build_direct_op
+    hloc = np.zeros((1, 1, 1, 1))
+    op = build_direct_op(cfg, table.sector(pt.qn(1, 1)), hloc,
+                         pt.init_bath(cfg), "cpu")
+    cfg_j = ed.EDConfig(ed_backend="dense", **CASES["finite_t"])
+    op_j = j_direct(cfg_j, ed.SectorTable(cfg_j).sector(ed.qn(1, 1)), hloc,
+                    ed.init_bath(cfg_j))
+    assert op.nnz == op_j.nnz > 0
 
 
 def test_bath_restart_roundtrip_all_topologies(tmp_path):

@@ -793,6 +793,32 @@ def test_sharded_ground_state_over_nccl(cuda, two_cards):
         assert vecs.tobytes() == out[0][3].tobytes()
 
 
+def test_lattice_sites_on_two_cards(cuda, two_cards):
+    """The lattice bank's default, every visible card: two sites with
+    band-sparse sectors (nbath = 7, sectors above 2,000 states; the two
+    sites differ by their U) solve on cuda:0 and cuda:1 from one process.
+    B2, B3 and B4 launch, and each site equals the same site solved on
+    cuda:0 (Egs and dens 1e-10, G(iw) 1e-8)."""
+    cfg = pt.EDConfig(norb=1, nspin=1, nbath=7, uloc=(2.0,), beta=50.0,
+                      lmats=128, lreal=16, ed_backend="pallas",
+                      ed_batch_dim_max=2000, ed_gf_chain_min_dim=2000)
+    uloc_ii = np.array([[2.0], [3.0]])
+    lat = pt.LatticeSolver(cfg, 2, uloc_ii=uloc_ii)
+    assert [str(s.device) for s in lat.solvers] == ["cuda:0", "cuda:1"]
+    baths = lat.init_baths()
+    bc.reset_launch_counts()
+    res = lat.solve(baths)
+    assert all(n > 0 for n in bc.launch_counts.values()), bc.launch_counts
+    ref = pt.LatticeSolver(cfg, 2, uloc_ii=uloc_ii,
+                           device="cuda:0").solve(baths)
+    np.testing.assert_allclose(res.dens, ref.dens, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(res.g_mats, ref.g_mats, rtol=0, atol=1e-8)
+    for r, r0 in zip(res.results, ref.results):
+        assert abs(r.observables.egs - r0.observables.egs) <= 1e-10
+    assert abs(res.results[0].observables.egs
+               - res.results[1].observables.egs) > 1e-3
+
+
 def test_kanamori_driver_on_the_band_sparse_path(cuda):
     """The three-orbital Kanamori driver, one loop on the card with its
     sectors above 4,000 states band-sparse (nbath = 2: (4,4) of 15,876
@@ -817,3 +843,47 @@ def test_kanamori_driver_on_the_band_sparse_path(cuda):
                                     **kw), np.zeros((1, 1, 3, 3)),
                         device=cuda)
     assert abs(dense.solve(ent["bath"]).observables.egs - ent["egs"]) <= 1e-9
+
+
+def test_lattice_dryrun_two_ranks_share_the_card(cuda):
+    """The two-rank lattice dryrun with both ranks on the one card (gloo,
+    staged through host memory): the merged arrays identical on both ranks
+    and equal to the one-process bank on the card (dens, Egs 1e-10, Sigma
+    1e-7, the fitted baths 1e-8: tests/test_multihost.py's gates)."""
+    from dmft_lanc_ed_tpu_torch.parallel import multihost_dryrun as dry
+    r0, r1 = run_local_ranks(dry.dryrun_rank, 2, args=("cuda",),
+                             device="cuda", timeout=300)
+    assert r0["device"].startswith("cuda") and r1["device"].startswith("cuda")
+    for k in ("sigma_mats", "g_mats", "dens", "docc", "egs", "fitted"):
+        np.testing.assert_array_equal(r1[k], r0[k], err_msg=k)
+    arrays, fitted = dry.solve_merged(cuda)
+    np.testing.assert_allclose(r0["dens"], arrays.dens, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(r0["egs"], arrays.egs, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(r0["sigma_mats"], arrays.sigma_mats, rtol=0,
+                               atol=1e-7)
+    np.testing.assert_allclose(r0["fitted"], fitted, rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("sqn", [(4, 4), (5, 3)])
+def test_ell_direct_and_band_applies_agree(cuda, sqn):
+    """At nbath = 7 on the card: the ELL and direct applies against the
+    f64-exact band apply on three random vectors, max|d| <= 1e-12 x
+    max|Hv| (the f64 backends' contract)."""
+    from dmft_lanc_ed_tpu_torch.ops.direct import (build_direct_op,
+                                                   matvec_direct_flat)
+    from dmft_lanc_ed_tpu_torch.ops.matvec import ell_op, matvec_flat
+    cfg = pt.read_input(None, norb=1, nbath=7, uloc=(2.0,))
+    sec = pt.SectorTable(cfg).sector(pt.qn(*sqn))
+    hloc, bath = np.zeros((1,) * 4), pt.init_bath(cfg)
+    h = pt.build_sector_hamiltonian(cfg, sec, hloc, bath)
+    op = build_blocksparse_op(h, cuda)
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (3, sec.dim)), device=cuda)
+    y_ref = bs.matvec_bs_exact_flat(op, x)
+    scale = float(y_ref.abs().max())
+    y_ell = matvec_flat(ell_op(h, cuda), x)
+    y_dir = matvec_direct_flat(build_direct_op(cfg, sec, hloc, bath, cuda),
+                               x)
+    assert y_ell.device.type == y_dir.device.type == "cuda"
+    assert float((y_ell - y_ref).abs().max()) <= 1e-12 * scale
+    assert float((y_dir - y_ref).abs().max()) <= 1e-12 * scale

@@ -43,3 +43,34 @@ def check_against_reference(res_p, res_j, cfg_j, hloc, nloop, h_basis=None,
         assert not np.allclose(res_p.history[1]["bath"], h0["bath"])
     for x in (res_p.sigma_mats, res_p.weiss, res_p.bath, res_p.dens):
         assert np.all(np.isfinite(x))
+
+
+def check_lattice_against_reference(hist_p, res_j, cfg_j, hloc_l, nloop,
+                                    h_basis=None, lambda_imp=None):
+    """The real-space drivers' check. `hist_p`: the port's history (nloop
+    loops, ``models.layered.lattice_entry``'s entries); `res_j`: the JAX
+    driver's loop 1 (dens, docc, sigma_mats stacked over the sites);
+    `hloc_l`: the sites' local Hamiltonians. Loop 1's dens, docc and
+    Sigma(iw) at 1e-6; every loop's sites against the JAX solves of their
+    input baths, dens and docc 1e-6, Egs 1e-9."""
+    assert len(hist_p) == nloop
+    h0 = hist_p[0]
+    np.testing.assert_allclose(h0["dens"], res_j.dens, atol=1e-6)
+    np.testing.assert_allclose(h0["docc"], res_j.docc, atol=1e-6)
+    sig = np.stack([s["sigma_mats"] for s in h0["sites"]])
+    np.testing.assert_allclose(sig, res_j.sigma_mats, atol=1e-6)
+    solvers = [ed.EDSolver(cfg_j, h, h_basis=h_basis, lambda_imp=lambda_imp)
+               for h in hloc_l]
+    for ent in hist_p:
+        assert len(ent["sites"]) == len(hloc_l)
+        for site, solver in zip(ent["sites"], solvers):
+            rj = solver.solve(site["bath"])
+            np.testing.assert_allclose(site["dens"], rj.observables.dens,
+                                       atol=1e-6)
+            np.testing.assert_allclose(site["docc"], rj.observables.docc,
+                                       atol=1e-6)
+            assert abs(site["egs"] - rj.observables.egs) < 1e-9
+            assert site["timings"]["kernel_matvecs"] >= 0
+    if nloop > 1:
+        assert not np.allclose(hist_p[1]["bath"], h0["bath"])
+    assert np.all(np.isfinite(hist_p[-1]["dens"]))
