@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12,13,14]
+    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12,13,14,15]
                           [--ghost-tol X]
 
 ``--ghost-tol`` replaces ``ops.bs_chain._GHOST_TOL`` for the run: phase 4
@@ -16,7 +16,7 @@ nonzero without a result line):
 1. build the CUDA kernels from ``dmft_lanc_ed_tpu_torch/csrc`` (one nvcc
    per source, all started together; each one's seconds and warnings are
    printed, and ptxas's C7515, wgmma serialized, fails the phase), while
-   the host ARPACK oracles of phases 2-7 and 9-14 run in a thread.
+   the host ARPACK oracles of phases 2-7 and 9-15 run in a thread.
 2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag, B1 the
    per-call matvec, trimmed and whole-window) against its plain PyTorch
    version at the 854k-state (6,6) sector of nbath = 11, with the
@@ -196,6 +196,28 @@ nonzero without a result line):
    direct backend) and ``lanc_method="dvdson"`` in the default
    configuration (Davidson over the band-sparse mixed apply, then the f64
    polish), each Egs within 1e-10.
+15. sharded2-a10: two spawned ranks sharing the card over gloo, as in
+   phase 7, spawned once for three parts (torch ops and collectives, no
+   kernel row): (a) direct854k-sharded2, phase 3's sector under the
+   sharded direct backend: the stitched apply of 2 random vectors against
+   the one-card f64 band apply (max|d| / max|Hv| <= 1e-12), pad rows
+   exactly 0, each rank's op payload under half the dense hdw's bytes;
+   the restricted solve (``ed_sparse_h=F``, (6,6), one state): its
+   sharded f64 ground state against phase 3's ARPACK (1e-10), the solve
+   against the one-rank solve of phase 14 (Egs 1e-10, G(iw) 1e-9, dens
+   1e-10), sharded direct applies in both its diag and its GF; (b)
+   jxjp2-854k-sharded2,
+   norb 2, nbath 5, uloc 2, ust 1, jh = jx = jp = 0.5 ((6,6) holds 853,776
+   states), the default configuration restricted to (6,6), one state: the
+   log shows the band-sparse shard path refused and the sharded dense
+   backend taken, Egs against host ARPACK with every sector term (1e-10),
+   G(iw) and Sigma(iw) against the one-rank solve (phase 7(b)'s gates);
+   (c) holstein7-sharded2, phase 12(a)'s model in f64 over the 9 sectors
+   around (4,4): the three dim_dw = 70 sectors sharded, the rest batched,
+   Egs against phase 12's ARPACK (1e-10), G(iw) and the phonon GF against
+   the one-rank solve (1e-9). Each part's seconds, ms an apply and
+   collective ms (rows_to_cols + cols_to_rows, or the row all-gather) are
+   printed; both ranks' results identical.
 
 The chain kernels' launches and steps of the kernel line are those of
 phases 4, 5, 9, 10, 11, 13 and 14.
@@ -1288,12 +1310,13 @@ def _p7_cfg(**kw):
                        lanc_nstates_sector=1, **kw)
 
 
-def _p7_solve(cfg, device):
-    """One restricted solve from init_bath -> (result, seconds)."""
+def _p7_solve(cfg, device, sqn=(HALF, HALF)):
+    """One solve from init_bath, restricted around `sqn` -> (result,
+    seconds)."""
     import torch
     import dmft_lanc_ed_tpu_torch as pt
     solver = pt.EDSolver(cfg, device=device)
-    solver.diag_state.sector_hint = [pt.qn(HALF, HALF)]
+    solver.diag_state.sector_hint = [pt.qn(*sqn)]
     t0 = time.perf_counter()
     res = solver.solve(solver.init_bath())
     torch.cuda.synchronize()
@@ -1959,13 +1982,14 @@ P12_FULL = dict(norb=1, nbath=3, uloc=(2.0,), beta=10.0, lmats=256,
                 chispin_flag=True, chidens_flag=True)
 
 
-def phase12_oracles():
+def phase12_oracles(names=tuple(P12_MODELS)):
     """Phase 12's host side, run in phase 1's thread: ARPACK of each
     model's half-filled sector at the initial bath, every sector term in
     the assembled CSR."""
     import dmft_lanc_ed_tpu_torch as pt
     out = {}
-    for name, (model, sqn) in P12_MODELS.items():
+    for name in names:
+        model, sqn = P12_MODELS[name]
         cfg = pt.EDConfig(**model, **P12_GRID)
         h, sec = _sector_h(cfg, np.zeros((1, 1, cfg.norb, cfg.norb)),
                            pt.init_bath(cfg), pt.qn(*sqn))
@@ -2195,6 +2219,8 @@ def phase13(oracle):
 
 # phase 14: the stored, direct and Davidson backends at the 854k sector
 P14_VECS = 3
+# the one-rank solve phases 14 and 15(a) share (ed_sparse_h=F at (6,6))
+_ONE_RANK = {}
 
 
 def _p14_cfg(**kw):
@@ -2285,6 +2311,7 @@ def phase14(cfg, sec, h, op, e0):
     bc.reset_launch_counts()
     try:
         r_dir, t_dir = _p7_solve(_p14_cfg(ed_sparse_h=False), DEVICE)
+        _ONE_RANK["direct"] = r_dir, t_dir
         r_dav, t_dav = _p7_solve(_p14_cfg(lanc_method="dvdson"), DEVICE)
     finally:
         pdiag.davidson_ground_state = dav
@@ -2317,10 +2344,323 @@ def phase14(cfg, sec, h, op, e0):
     return counts, steps
 
 
+# phase 15: sharded direct, Jx/Jp and phonon sectors over two ranks
+# jxjp2-854k: phase 12(b)'s couplings at nbath = 5, (6,6) holding 853,776
+P15_JXJP = dict(norb=2, nbath=5, uloc=(2.0, 2.0), ust=1.0, jh=0.5, jx=0.5,
+                jp=0.5)
+P15_VECS = 2              # random vectors of the apply check
+P15_REPS = 5              # applies and transposes a timing
+P15_SEED = 15
+
+
+def wall_ms(fn, reps):
+    """Host milliseconds per fn() over `reps` calls after a warm-up, the
+    card synchronized around them (a gloo collective stages through host
+    memory, so events would time the host anyway)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _p15_cfg(model, **kw):
+    """A solve of `model` restricted to (6,6), one state."""
+    import dmft_lanc_ed_tpu_torch as pt
+    return pt.EDConfig(**model, beta=100.0, lmats=1024, lreal=64,
+                       ed_sectors=True, ed_sectors_shift=0,
+                       lanc_nstates_sector=1, **kw)
+
+
+def _p15c_cfg(**kw):
+    """holstein7-sharded2: phase 12(a)'s model and grid in f64."""
+    import dmft_lanc_ed_tpu_torch as pt
+    return pt.EDConfig(**P12_MODELS["holstein7"][0], **P12_GRID,
+                       ed_precision="f64", **kw)
+
+
+def phase15_oracles(holstein):
+    """Phase 15's host side, run in phase 1's thread: ARPACK of jxjp2's
+    (6,6) at the initial bath with every sector term, and of holstein7's
+    (4,4) unless phase 12's oracles hold it."""
+    import dmft_lanc_ed_tpu_torch as pt
+    cfg = _p15_cfg(P15_JXJP)
+    h, sec = _sector_h(cfg, np.zeros((1, 1, 2, 2)), pt.init_bath(cfg),
+                       pt.qn(HALF, HALF))
+    out = dict(jxjp=host_ground_state(h, sec, " jxjp2 (6,6)")[0],
+               dim=sec.dim)
+    if holstein:
+        out.update(phase12_oracles(("holstein7",)))
+    return out
+
+
+def phase15_ref(op):
+    """The one-card f64-exact band apply of P15_VECS random vectors at
+    phase 3's sector: 15(a)'s reference, made while `op` lives."""
+    import torch
+    from dmft_lanc_ed_tpu_torch.ops.blocksparse import matvec_bs_exact_flat
+    x = np.random.default_rng(P15_SEED).standard_normal((P15_VECS, op.dim))
+    xt = torch.as_tensor(x, device=DEVICE)
+    return torch.stack([matvec_bs_exact_flat(op, xi) for xi in xt]
+                       ).cpu().numpy()
+
+
+def _p15_result(res, t, counts, after_diag):
+    """What a rank returns of one solve."""
+    return dict(t=t, egs=res.state_list.emin, g_mats=res.g_mats,
+                sigma_mats=res.sigma_mats, dens=res.observables.dens,
+                timings=res.timings, counts=dict(counts),
+                diag_counts=dict(after_diag))
+
+
+def phase15_rank(rank):
+    """One of NSHARD ranks sharing the card: (a) the sharded direct apply
+    and the restricted solve at phase 3's sector; (b) the
+    restricted default solve of jxjp2-854k; (c) holstein7's f64 solve
+    over the 9 sectors around (4,4); with the applies' and the
+    collectives' ms."""
+    import torch
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch import diag as pdiag
+    from dmft_lanc_ed_tpu_torch import solver as psolver
+    from dmft_lanc_ed_tpu_torch.ops import batched as bt
+    from dmft_lanc_ed_tpu_torch.ops.direct import build_direct_op
+    from dmft_lanc_ed_tpu_torch.parallel import production as prod
+    from dmft_lanc_ed_tpu_torch.parallel.mesh import make_mesh
+    from dmft_lanc_ed_tpu_torch.parallel.multihost import rank_device
+    from dmft_lanc_ed_tpu_torch.solver import bosonic_grid
+    dev = rank_device(DEVICE)
+    mesh = make_mesh(NSHARD, dev)
+    out = dict(device=str(dev), transport=mesh.transport)
+    handler = _LogLines()
+    logger = logging.getLogger("dmft_lanc_ed_tpu_torch")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    # the apply counts when the diag ends (the rest are the GF's), and
+    # the sharded operators the diag builds
+    after_diag, built = {}, []
+    diagonalize, shard = psolver.diagonalize_impurity, pdiag.shard_sector_op
+
+    def counted(*a, **k):
+        states = diagonalize(*a, **k)
+        after_diag.update(prod.apply_counts)
+        return states
+
+    def kept(*a, **k):
+        built.append(shard(*a, **k))
+        return built[-1]
+    psolver.diagonalize_impurity = counted
+    pdiag.shard_sector_op = kept
+
+    # (a) direct854k-sharded2
+    t_a = time.perf_counter()
+    cfg = _p14_cfg(ed_sparse_h=False, mesh_shape=(NSHARD,))
+    sec = pt.SectorTable(cfg).sector(pt.qn(HALF, HALF))
+    sop = prod.shard_direct_op(build_direct_op(
+        cfg, sec, np.zeros((1, 1, 1, 1)), pt.init_bath(cfg), "cpu"), mesh,
+        cfg)
+    x = np.random.default_rng(P15_SEED).standard_normal((P15_VECS, sec.dim))
+    xp = sop.pad_flat_batch(x)
+    y = sop.exact_nd(sop, xp)
+    rows = sop.local_shape[-2]
+    pad = torch.arange(rank * rows, (rank + 1) * rows) >= sop.dim_dw
+    y_full = sop.unpad_gather(y)
+    blk = xp[:1]
+    out["a"] = dict(
+        y=y_full if rank == 0 else None, payload=sop.op.nbytes,
+        dim_dw=sec.dim_dw,
+        pad_rows=int(pad.sum()),
+        pad_max=float(y[..., pad.to(dev), :].abs().max()) if pad.any()
+        else 0.0,
+        ms_apply=wall_ms(lambda: sop.exact_nd(sop, xp[0]), P15_REPS),
+        ms_coll=wall_ms(lambda: mesh.cols_to_rows(mesh.rows_to_cols(blk),
+                                                  blk.shape[-1]),
+                        P15_REPS))
+    del sop, xp, y
+    prod.reset_apply_counts()
+    after_diag.clear()
+    res, t = _p7_solve(cfg, dev)
+    out["a"].update(solve=_p15_result(res, t, prod.apply_counts, after_diag),
+                    t_all=time.perf_counter() - t_a)
+    # (b) jxjp2-854k-sharded2, the default configuration
+    t_b = time.perf_counter()
+    cfg = _p15_cfg(P15_JXJP, mesh_shape=(NSHARD,))
+    prod.reset_apply_counts()
+    after_diag.clear()
+    handler.lines.clear()
+    res, t = _p7_solve(cfg, dev)
+    out["b"] = dict(solve=_p15_result(res, t, prod.apply_counts, after_diag),
+                    lines=[ln for ln in handler.lines
+                           if "sharded" in ln and "backend" in ln])
+    sop = built[-1]                          # the diag's, at (6,6)
+    v = sop.pad_flat(np.random.default_rng(P15_SEED).standard_normal(
+        sop.dim))
+    v32 = v.float()
+    out["b"].update(
+        apply=sop.apply_nd.__name__,
+        ms_apply=wall_ms(lambda: sop.apply_nd(sop, v), P15_REPS),
+        ms_coll=wall_ms(lambda: mesh.allgather_rows(v32), P15_REPS),
+        t_all=time.perf_counter() - t_b)
+    del sop, v, v32
+    built.clear()
+    # (c) holstein7-sharded2, f64, the 9 sectors around (4,4)
+    t_c = time.perf_counter()
+    cfg = _p15c_cfg(mesh_shape=(NSHARD,))
+    prod.reset_apply_counts()
+    after_diag.clear()
+    handler.lines.clear()
+    bt.reset_bucket_counts()
+    res, t = _p7_solve(cfg, dev, P12_MODELS["holstein7"][1])
+    out["c"] = dict(solve=_p15_result(res, t, prod.apply_counts, after_diag),
+                    buckets=dict(bt.bucket_counts),
+                    gs_qn=res.state_list.states[0].qn,
+                    gf_phonon=res.gf_phonon.matsubara(cfg.beta,
+                                                      bosonic_grid(cfg)),
+                    lines=[ln for ln in handler.lines
+                           if "sharded" in ln and "backend" in ln],
+                    t_all=time.perf_counter() - t_c)
+    psolver.diagonalize_impurity = diagonalize
+    pdiag.shard_sector_op = shard
+    logger.removeHandler(handler)
+    return out
+
+
+def phase15(e0, ref_y, oracles):
+    """sharded2-a10: NSHARD spawned ranks sharing the card (phase15_rank)
+    against phase 3's ARPACK energy and the one-card band apply (`ref_y`,
+    phase15_ref), the host ARPACK oracles and the one-rank solves."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.parallel.multihost import run_local_ranks
+    from dmft_lanc_ed_tpu_torch.solver import bosonic_grid
+    t_all = time.perf_counter()
+    out = run_local_ranks(phase15_rank, NSHARD, device=DEVICE, timeout=600)
+    t_ranks = time.perf_counter() - t_all
+    r0 = out[0]
+    say(f"phase 15 sharded2-a10: {NSHARD} ranks on {r0['device']}, "
+        f"transport {r0['transport']}, {t_ranks:.1f} s with spawn "
+        f"(time-sliced on one card, not a multi-card number; {CARD})")
+
+    def same(part):
+        return all(o[part]["solve"]["egs"] == r0[part]["solve"]["egs"]
+                   and np.array_equal(o[part]["solve"]["g_mats"],
+                                      r0[part]["solve"]["g_mats"])
+                   for o in out[1:])
+
+    def counts(s, key):
+        d = s["diag_counts"].get(key, 0)
+        return d, s["counts"][key] - d
+
+    # (a) direct854k-sharded2
+    a = r0["a"]
+    scale = float(np.abs(ref_y).max())
+    rel = float(np.abs(a["y"] - ref_y).max()) / scale
+    hdw = a["dim_dw"] ** 2 * 8
+    one = _ONE_RANK.get("direct")
+    if one is None:
+        one = _p7_solve(_p14_cfg(ed_sparse_h=False), DEVICE)
+    ref, t_ref = one
+    s = a["solve"]
+    d_e = abs(s["egs"] - ref.state_list.emin)
+    d_g = float(np.abs(s["g_mats"] - ref.g_mats).max())
+    d_n = float(np.abs(s["dens"] - ref.observables.dens).max())
+    dg_a, gf_a = counts(s, "direct_sharded")
+    say(f"  (a) direct854k-sharded2: {P15_VECS} vectors, stitched apply vs "
+        f"the one-card f64 band apply max|d| / max|Hv| {rel:.3e} (gate "
+        f"1e-12), pad rows {[o['a']['pad_rows'] for o in out]} max|y| "
+        f"{max(o['a']['pad_max'] for o in out):.1e} (gate 0); payload a "
+        f"rank {[o['a']['payload'] for o in out]} B vs the dense hdw's "
+        f"{hdw} B; {a['ms_apply']:.3f} ms an apply, rows_to_cols + "
+        f"cols_to_rows {a['ms_coll']:.3f} ms ({CARD})")
+    say(f"  (a) restricted solve: the sharded f64 ground state "
+        f"{s['egs']:+.12f}, |dE| vs phase 3's ARPACK {abs(s['egs'] - e0):.3e} "
+        f"(gate 1e-10); {s['t']:.2f} s (diag {s['timings']['diag']:.2f}, gf "
+        f"{s['timings']['gf']:.2f}) vs one rank {t_ref:.2f} s: |dEgs| "
+        f"{d_e:.3e} (1e-10), G(iw) {d_g:.3e} (1e-9), dens {d_n:.3e} "
+        f"(1e-10); direct_sharded applies diag {dg_a}, gf {gf_a}; part "
+        f"{a['t_all']:.1f} s")
+    if not (rel <= 1e-12 and all(o["a"]["pad_max"] == 0.0 for o in out)):
+        raise AssertionError("the sharded direct apply differs")
+    if not all(o["a"]["payload"] < hdw / 2 for o in out):
+        raise AssertionError("the sharded direct op outgrew half of hdw")
+    if not abs(s["egs"] - e0) <= 1e-10:
+        raise AssertionError("the sharded direct ground state misses ARPACK")
+    if not (d_e <= 1e-10 and d_g <= 1e-9 and d_n <= 1e-10):
+        raise AssertionError("the sharded direct solve differs from one rank")
+    if not (dg_a > 0 and gf_a > 0 and same("a")):
+        raise AssertionError("(a): no sharded direct applies in the diag or "
+                             "GF, or the ranks differ")
+    # (b) jxjp2-854k-sharded2
+    b = r0["b"]
+    s = b["solve"]
+    ref, t_ref = _p7_solve(_p15_cfg(P15_JXJP), DEVICE)
+    de = abs(s["egs"] - oracles["jxjp"])
+    d_g = float(np.abs(s["g_mats"] - ref.g_mats).max())
+    d_s = float(np.abs(s["sigma_mats"] - ref.sigma_mats).max())
+    dg_b, gf_b = counts(s, "dense_sharded")
+    refused = [ln for ln in b["lines"] if "band-sparse shard path "
+               "unavailable" in ln and ln.endswith("sharded dense backend")]
+    say(f"  (b) jxjp2-854k-sharded2 ((6,6) {oracles['dim']} states): Egs "
+        f"{s['egs']:+.12f}, host ARPACK {oracles['jxjp']:+.12f}, |dE| "
+        f"{de:.3e} (gate 1e-10; the one-rank solve's "
+        f"{abs(ref.state_list.emin - oracles['jxjp']):.3e}); {s['t']:.2f} s "
+        f"(diag {s['timings']['diag']:.2f}, gf {s['timings']['gf']:.2f}) vs one "
+        f"rank {t_ref:.2f} s: G(iw) {d_g:.3e} (2e-5), Sigma(iw) {d_s:.3e} "
+        f"(2e-4); dense_sharded applies diag {dg_b}, gf {gf_b}; "
+        f"{b['apply']} {b['ms_apply']:.3f} ms an apply, all-gather of the "
+        f"f32 rows {b['ms_coll']:.3f} ms ({CARD}); part {b['t_all']:.1f} s")
+    say(f"  (b) log: {b['lines'][:1]}")
+    if not refused:
+        raise AssertionError("(b) did not log the band-sparse shard path "
+                             "refused and the sharded dense backend")
+    if not de <= 1e-10:
+        raise AssertionError("(b) misses the ARPACK energy")
+    if not (d_g <= P7_G_TOL and d_s <= P7_SIGMA_TOL):
+        raise AssertionError("(b) differs from the one-rank solve")
+    if not (dg_b > 0 and gf_b > 0 and same("b")):
+        raise AssertionError("(b): no sharded dense applies in the diag or "
+                             "GF, or the ranks differ")
+    # (c) holstein7-sharded2
+    c = r0["c"]
+    s = c["solve"]
+    name, (model, sqn) = "holstein7", P12_MODELS["holstein7"]
+    if c["gs_qn"] == pt.qn(*sqn):
+        e_ref = oracles["holstein7"]
+    else:
+        cfg = _p15c_cfg()
+        h, sec = _sector_h(cfg, np.zeros((1, 1, 1, 1)), pt.init_bath(cfg),
+                           c["gs_qn"])
+        e_ref = host_ground_state(h, sec, f" {name} {c['gs_qn']}")[0]
+    cfg = _p15c_cfg()
+    ref, t_ref = _p7_solve(cfg, DEVICE, sqn)
+    de = abs(s["egs"] - e_ref)
+    d_g = float(np.abs(s["g_mats"] - ref.g_mats).max())
+    d_ph = float(np.abs(c["gf_phonon"] - ref.gf_phonon.matsubara(
+        cfg.beta, bosonic_grid(cfg))).max())
+    sharded = sorted({ln.split(":")[0] for ln in c["lines"]})
+    say(f"  (c) holstein7-sharded2: Egs {s['egs']:+.12f} in {c['gs_qn']}, "
+        f"host ARPACK {e_ref:+.12f}, |dE| {de:.3e} (gate 1e-10); "
+        f"{s['t']:.2f} s (diag {s['timings']['diag']:.2f}, gf "
+        f"{s['timings']['gf']:.2f}) vs one rank {t_ref:.2f} s: G(iw) "
+        f"{d_g:.3e} (1e-9), gf_phonon {d_ph:.3e} (1e-9); sharded sectors "
+        f"{sharded}, buckets {c['buckets']}, dense_sharded applies "
+        f"{s['counts']['dense_sharded']}; part {c['t_all']:.1f} s")
+    if not (de <= 1e-10 and d_g <= 1e-9 and d_ph <= 1e-9):
+        raise AssertionError("(c) misses ARPACK or the one-rank solve")
+    if not (len(sharded) == 3 and c["buckets"]["buckets"] > 0
+            and s["counts"]["dense_sharded"] > 0 and same("c")):
+        raise AssertionError("(c): not the three dim_dw = 70 sectors "
+                             "sharded and the rest batched, or the ranks "
+                             "differ")
+    say(f"phase 15: {time.perf_counter() - t_all:.1f} s ({CARD})")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12,13,14")
+                    default="0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12,13,14,15")
     ap.add_argument("--ghost-tol", type=float, default=None)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2348,13 +2688,13 @@ def main():
         rows, counts, steps = [], {}, {}
         e_gs = serial = None
         e0 = arpack = p9_oracle = p10_oracle = p12_oracle = None
-        p13_oracle = None
+        p13_oracle = p15_oracle = p15_ref = None
         # the host oracles run in a thread while nvcc builds
         oracle = ThreadPoolExecutor(1)
-        on_854k = phases & {"2", "2s", "3", "3b", "6", "7", "8", "14"}
+        on_854k = phases & {"2", "2s", "3", "3b", "6", "7", "8", "14", "15"}
         if on_854k:
             cfg, sec, h, op = sector_854k()
-            if phases & {"2", "3", "3b", "7", "14"}:
+            if phases & {"2", "3", "3b", "7", "14", "15"}:
                 arpack = oracle.submit(host_ground_state, h, sec)
         if "9" in phases:
             p9_oracle = oracle.submit(phase9_oracles)
@@ -2365,6 +2705,8 @@ def main():
             p12_oracle = oracle.submit(phase12_oracles)
         if "13" in phases:
             p13_oracle = oracle.submit(phase13_oracle)
+        if "15" in phases:
+            p15_oracle = oracle.submit(phase15_oracles, "12" not in phases)
         if "1" in phases:
             phase1()
         if on_854k:
@@ -2388,6 +2730,8 @@ def main():
                 steps.update(s8)
             if "14" in phases:
                 p14 = phase14(cfg, sec, h, op, e0)
+            if "15" in phases:
+                p15_ref = phase15_ref(op)
             del op
             _SECTORS.clear()
         if "4" in phases:
@@ -2425,6 +2769,11 @@ def main():
             for tot, add in ((counts, c_n), (steps, s_n)):
                 for k, n in add.items():
                     tot[k] = tot.get(k, 0) + n
+        if "15" in phases:
+            p15 = p15_oracle.result()
+            if "holstein7" not in p15:
+                p15["holstein7"] = p12_oracle.result()["holstein7"]
+            phase15(e0, p15_ref, p15)
         oracle.shutdown()
     except Exception:
         traceback.print_exc()

@@ -19,8 +19,9 @@ With ``cfg.mesh_shape`` and that many ranks running (parallel/), every rank
 runs this scan; Krylov sectors with dim_dw >= ``ed_shard_min_dimdw`` are
 solved dw-sharded over the ranks: through the band-sparse kernel B5 where
 its halo form applies (parallel/bs_sharded.py), else through the sharded
-dense operator (parallel/production.py), each choice logged. Every rank
-ends with the same states.
+direct operator (``ed_backend="direct"`` or ``ed_sparse_h=F``) or the
+sharded dense one (parallel/production.py), phonon and Jx/Jp sectors
+included, each choice logged. Every rank ends with the same states.
 
 ``ed_diag_type="full"`` diagonalizes every sector completely by host
 LAPACK (:func:`_diag_full`) and keeps every state. ``lanc_method="dvdson"``
@@ -56,8 +57,8 @@ from .ops.factory import (apply_is_exact, exact_apply, make_sector_op,
 from .ops.lanczos import lanczos_ground_state, refine_eigenpairs
 from .parallel.bs_sharded import (blocksparse_shardable,
                                   bs_sharded_ground_state)
-from .parallel.production import (shard_sector_op,
-                                  sharded_dense_ground_state, should_shard,
+from .parallel.production import (shard_sector_op, sharded_backend,
+                                  sharded_ground_state, should_shard,
                                   solver_mesh)
 from .sectors import SectorQN, SectorTable
 
@@ -225,8 +226,9 @@ def _sharded_ground_state(cfg: EDConfig, sqn, sec, hloc, bath, h_basis,
     """A Krylov sector solved dw-sharded over the mesh (the reference's
     P-ARPACK over the MPI Dw-split, ED_DIAG.f90:151-171): the band-sparse
     kernel B5 when its halo form applies to this sector and mesh, else the
-    sharded dense backend, each choice logged. Same result on every
-    rank."""
+    sharded direct or dense backend (production.sharded_backend), each
+    choice logged. Same result on every rank."""
+    backend = sharded_backend(cfg, mesh.device)
     if resolve_backend(cfg, device) == "pallas":
         h = build_sector_hamiltonian(cfg, sec, hloc, bath, h_basis=h_basis)
         why_not = blocksparse_shardable(h, mesh.size)
@@ -237,13 +239,15 @@ def _sharded_ground_state(cfg: EDConfig, sqn, sec, hloc, bath, h_basis,
             return bs_sharded_ground_state(
                 cfg, build_blocksparse_op(h, "cpu"), mesh, neigen, ncv)
         log.info("sector %s (dim %d): band-sparse shard path unavailable "
-                 "(%s) — sharded %s backend", sqn, dim, why_not,
-                 "direct" if not cfg.ed_sparse_h else "dense")
+                 "(%s) — sharded %s backend", sqn, dim, why_not, backend)
+    else:
+        log.info("sector %s (dim %d): sharded %s backend on %d ranks", sqn,
+                 dim, backend, mesh.size)
     sop = shard_sector_op(cfg, sec, hloc, bath, h_basis, mesh)
     # start vector with exact-zero pad rows (the pad subspace is invariant,
     # parallel/production.pad_dense_op)
     v0 = sop.pad_flat(np.random.default_rng(17).standard_normal(dim))
-    return sharded_dense_ground_state(
+    return sharded_ground_state(
         sop, neigen, ncv, _lanc_tol(cfg, sop.exact_nd is sop.apply_nd), v0)
 
 

@@ -12,7 +12,8 @@ by target sector (:class:`_ExcBatcher`):
 - smaller targets run a batched Lanczos scan over the dense operator;
 - with ``cfg.mesh_shape`` and that many ranks running, targets with
   dim_dw >= ``ed_shard_min_dimdw`` run the batched scan over the dw-sharded
-  dense operator (parallel/production.py), each rank holding its rows of
+  dense or direct operator (parallel/production.py; phonon blocks
+  included), each rank holding its rows of
   the chains (the reference's scattered vectors, ED_GF_NORMAL.f90:224-238);
   they bypass B4, as in the JAX package.
 
@@ -122,8 +123,7 @@ class HCache:
     factory, built once per sector. Under the band-sparse backend, targets
     below ``ed_gf_chain_min_dim`` get the dense operator (its apply is the
     same mixed contract as the band-sparse flat apply). With a mesh,
-    :meth:`sharded` gives the dw-sharded dense operator of a large
-    target."""
+    :meth:`sharded` gives the dw-sharded operator of a large target."""
 
     def __init__(self, cfg: EDConfig, table: SectorTable, hloc, bath: Bath,
                  device="cuda", h_basis=None):

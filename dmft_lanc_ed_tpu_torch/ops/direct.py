@@ -271,21 +271,28 @@ def apply_direct(op: DirectSectorOp, v: torch.Tensor) -> torch.Tensor:
             y = y + op.nd_a[t] * (tmp.index_select(-2, src_d[t])
                                   * w_d[t].to(v.dtype)[:, None])
     if op.ph_n is not None:
-        y = y + (op.ph_w0 * op.ph_n)[:, None, None] * v
-        # e-ph: y[p] += (X ev)[p], ev = [sum_a g_a (n_a - 1)] v, the
-        # impurity occupancies from the masks' low norb bits
-        norb = op.ph_g.shape[0]
-        bits = torch.arange(norb, device=op.device)
-        g = op.ph_g
-        gu = ((op.states_up[:, None] >> bits) & 1).to(g.dtype) @ g
-        gd = ((op.states_dw[:, None] >> bits) & 1).to(g.dtype) @ g
-        ev = (gu[None, :] + gd[:, None] - g.sum()) * v
-        coef = torch.sqrt(op.ph_n[1:])[:, None, None]   # sqrt(1..P-1)
-        lo = coef * ev[..., 1:, :, :]                   # b
-        hi = coef * ev[..., :-1, :, :]                  # b^+
-        y = y + torch.cat([lo, torch.zeros_like(lo[..., :1, :, :])], -3) \
-            + torch.cat([torch.zeros_like(hi[..., :1, :, :]), hi], -3)
+        y = add_phonon_terms(op, v, y)
     return y
+
+
+def add_phonon_terms(op: DirectSectorOp, v: torch.Tensor, y: torch.Tensor
+                     ) -> torch.Tensor:
+    """y plus the phonon diagonal w0 n_ph . v and the e-ph term over the
+    op's dw rows (``states_dw``), v [..., DimPh, rows, DimUp]."""
+    y = y + (op.ph_w0 * op.ph_n)[:, None, None] * v
+    # e-ph: y[p] += (X ev)[p], ev = [sum_a g_a (n_a - 1)] v, the
+    # impurity occupancies from the masks' low norb bits
+    norb = op.ph_g.shape[0]
+    bits = torch.arange(norb, device=op.device)
+    g = op.ph_g
+    gu = ((op.states_up[:, None] >> bits) & 1).to(g.dtype) @ g
+    gd = ((op.states_dw[:, None] >> bits) & 1).to(g.dtype) @ g
+    ev = (gu[None, :] + gd[:, None] - g.sum()) * v
+    coef = torch.sqrt(op.ph_n[1:])[:, None, None]   # sqrt(1..P-1)
+    lo = coef * ev[..., 1:, :, :]                   # b
+    hi = coef * ev[..., :-1, :, :]                  # b^+
+    return y + torch.cat([lo, torch.zeros_like(lo[..., :1, :, :])], -3) \
+        + torch.cat([torch.zeros_like(hi[..., :1, :, :]), hi], -3)
 
 
 def matvec_direct_flat(op: DirectSectorOp, v_flat: torch.Tensor

@@ -217,9 +217,10 @@ def lanczos_ground_state(
     mixed-precision run are refined by :func:`refine_eigenpairs`.
 
     Sharded (``reduce`` given, ``shard = (rank, ranks)``): `vshape` is this
-    rank's block of rows of a vector of ``ranks * vshape[0]`` rows, `dim`
-    the global dimension; a random (re)start is the same global draw on
-    every rank, of which each takes its own rows.
+    rank's block of a vector whose row axis, axis -2 of `vshape`, holds
+    ``ranks * vshape[-2]`` rows (a phonon sector's block is [DimPh, L,
+    DimUp]), `dim` the global dimension; a random (re)start is the same
+    global draw on every rank, of which each takes its own rows.
 
     Returns (energies [k], vectors [k, prod(vshape)] host f64) ascending,
     k == neigen.
@@ -237,10 +238,13 @@ def lanczos_ground_state(
     rank, ranks = shard
 
     def random_vec():
-        rows = vshape[0]
-        v = rng.standard_normal((ranks * rows,) + vshape[1:])
-        return torch.as_tensor(v[rank * rows:(rank + 1) * rows], dtype=dtype,
-                               device=dev)
+        if ranks == 1:
+            return torch.as_tensor(rng.standard_normal(vshape), dtype=dtype,
+                                   device=dev)
+        rows = vshape[-2]
+        v = rng.standard_normal(vshape[:-2] + (ranks * rows, vshape[-1]))
+        return torch.as_tensor(v[..., rank * rows:(rank + 1) * rows, :],
+                               dtype=dtype, device=dev)
 
     v0 = random_vec() if v0 is None else \
         torch.as_tensor(v0, device=dev).to(dtype).reshape(vshape)

@@ -102,6 +102,23 @@ def build_ell_op(cfg: EDConfig, sec: Sector, hloc: np.ndarray, bath: Bath,
     return ell_op(h, device)
 
 
+def add_dw_hops(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+    """y plus the dw factor's row gathers, one per ELL slot: row i of axis
+    -2 receives vals[i, k] v[..., cols[i, k], :]."""
+    for k in range(cols.shape[1]):
+        y = y + vals[:, k, None] * v.index_select(-2, cols[:, k])
+    return y
+
+
+def add_up_hops(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+    """y plus the up factor's column gathers, one per ELL slot."""
+    for k in range(cols.shape[1]):
+        y = y + vals[:, k] * v.index_select(-1, cols[:, k])
+    return y
+
+
 def apply_h(op: EllSectorOp, v: torch.Tensor) -> torch.Tensor:
     """y = H v for one sector; v [..., (DimPh,) DimDw, DimUp] on the op's
     device (a host SectorHamiltonian goes through :func:`ell_op` once)."""
@@ -109,11 +126,8 @@ def apply_h(op: EllSectorOp, v: torch.Tensor) -> torch.Tensor:
 
     def el(t):          # an electron factor meets every phonon block
         return t.unsqueeze(-3) if ph else t
-    y = el(op.diag) * v
-    for k in range(op.dw_cols.shape[1]):        # dw hops: row gathers
-        y = y + op.dw_vals[:, k, None] * v.index_select(-2, op.dw_cols[:, k])
-    for k in range(op.up_cols.shape[1]):        # up hops: column gathers
-        y = y + op.up_vals[:, k] * v.index_select(-1, op.up_cols[:, k])
+    y = add_dw_hops(el(op.diag) * v, op.dw_cols, op.dw_vals, v)
+    y = add_up_hops(y, op.up_cols, op.up_vals, v)
     if op.nd_up_src is not None:
         # sum_t B_t (x) A_t, each factor a gather map
         for t in range(op.nd_up_src.shape[0]):

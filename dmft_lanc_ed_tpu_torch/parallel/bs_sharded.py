@@ -36,7 +36,7 @@ The two-stage ground state, the single-card solve's split
 (``diag._blocksparse_ground_state``) over the ranks: an f32 thick restart
 over B5 with the rank sums as its ``reduce``; then, from its vector, a
 Lanczos top-off over the sharded dense operator of the natural-order
-factors (:func:`.production.sharded_dense_ground_state`: mixed products
+factors (:func:`.production.sharded_ground_state`: mixed products
 and the f64 Rayleigh-Ritz polish on the card, f64 on the CPU). The JAX
 package polishes on the host instead, which contracts the residual only
 ~1.4x per call from an f32 vector.
@@ -59,7 +59,7 @@ from ..ops.blocksparse import (BS_DEVICE_BUDGET, BlockSparseSectorOp,
 from ..ops.dense import DenseSectorOp
 from ..ops.lanczos import lanczos_ground_state
 from .mesh import DwMesh, pad_to_multiple
-from .production import shard_dense_op, sharded_dense_ground_state
+from .production import shard_dense_op, sharded_ground_state
 
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
 
@@ -385,6 +385,6 @@ def bs_sharded_ground_state(cfg, op: BlockSparseSectorOp, mesh: DwMesh,
     # the top-off's residual floor is its apply's (diag._lanc_tol): f64
     # products, or mixed ones polished after
     floor = 1e-14 if nat.apply_nd is nat.exact_nd else 3e-6
-    return sharded_dense_ground_state(
+    return sharded_ground_state(
         nat, neigen, ncv, max(cfg.lanc_tolerance, floor),
         nat.pad_flat(seed.reshape(-1).cpu().numpy()))

@@ -10,7 +10,14 @@ are written:
 - :meth:`DwMesh.allreduce` — a sum over the ranks in rank order (all-gather,
   then one fixed-order sum), so every rank holds the same bits;
 - :meth:`DwMesh.allgather_rows` — the full vector from the row shards;
-- :meth:`DwMesh.halo` — the two strips of the band-sparse halo exchange.
+- :meth:`DwMesh.halo` — the two strips of the band-sparse halo exchange;
+- :meth:`DwMesh.rows_to_cols` / :meth:`DwMesh.cols_to_rows` — the
+  reference's vector_transpose_MPI (ED_HAMILTONIAN_COMMON.f90:53-118): a
+  dw-row block ``[..., L, du]`` becomes this rank's up columns of every
+  row, ``[..., ddp, c_rank]``, and back, one all-to-all each way. The up
+  axis splits unevenly where the ranks do not divide it
+  (:meth:`DwMesh.col_split`); the JAX package's ``shard_map`` pads it
+  instead.
 
 Every collective moves its tensors on the transport's own device and
 returns them on the caller's: host memory under gloo (its point-to-point
@@ -21,6 +28,7 @@ tensor, as in ``multihost.allreduce_sites``, is staged through the card).
 from __future__ import annotations
 
 import logging
+import math
 from typing import Tuple
 
 import torch
@@ -63,6 +71,46 @@ class DwMesh:
         """The ranks' row blocks of `t`, concatenated along `dim` in rank
         order."""
         return torch.cat(self._gather(t), dim=dim).to(t.device)
+
+    def col_split(self, du: int) -> list:
+        """The up columns each rank holds in the column layout: du split
+        as evenly as it goes, the first du % size ranks one more."""
+        q, r = divmod(du, self.size)
+        return [q + (i < r) for i in range(self.size)]
+
+    def rows_to_cols(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's row block [..., L, du] -> this rank's up columns of
+        the whole padded vector, [..., size * L, c] (rows in rank order)."""
+        lead, rows, du = t.shape[:-2], t.shape[-2], t.shape[-1]
+        split = self.col_split(du)
+        # the blocks are packed and unpacked on the caller's device; only
+        # the packed buffers cross to the transport's
+        send = self._wire(torch.cat([p.reshape(-1)
+                                     for p in torch.split(t, split, -1)]))
+        per = math.prod(lead) * rows
+        mine = split[self.rank]
+        recv = torch.empty(per * mine * self.size, dtype=t.dtype,
+                           device=self.wire)
+        dist.all_to_all_single(recv, send, [per * mine] * self.size,
+                               [per * c for c in split])
+        out = recv.to(t.device).reshape((self.size,) + lead + (rows, mine))
+        return out.movedim(0, -3).reshape(lead + (self.size * rows, mine))
+
+    def cols_to_rows(self, t: torch.Tensor, du: int) -> torch.Tensor:
+        """The inverse of :meth:`rows_to_cols`: this rank's up columns
+        [..., size * L, c] -> its row block [..., L, du]."""
+        lead, mine = t.shape[:-2], t.shape[-1]
+        rows = t.shape[-2] // self.size
+        split = self.col_split(du)
+        send = self._wire(t.reshape(lead + (self.size, rows, mine))
+                          .movedim(-3, 0).reshape(-1))
+        per = math.prod(lead) * rows
+        recv = torch.empty(per * du, dtype=t.dtype, device=self.wire)
+        dist.all_to_all_single(recv, send, [per * c for c in split],
+                               [per * mine] * self.size)
+        parts = torch.split(recv.to(t.device), [per * c for c in split])
+        return torch.cat([p.reshape(lead + (rows, c))
+                          for p, c in zip(parts, split)], -1)
 
     def halo(self, v_loc: torch.Tensor, rows: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -170,19 +170,30 @@ def test_config_cli_values_parse_like_the_input_file():
 
 
 def test_unported_options_raise():
-    # ROADMAP A5 landed (the ELL and direct backends, lanc_method="dvdson":
-    # tests/test_torch_backends.py); what still raises is A10's: the
-    # sharded direct backend and dw-sharded phonon and Jx/Jp sectors
+    # ROADMAP A5 and A10 landed: the sharded direct backend and
+    # dw-sharded phonon and Jx/Jp sectors build their sharded operators
+    # (run on ranks in tests/test_torch_sharding_a10.py). What still
+    # raises is the JAX package's own refusal: ShardedLanczos, the ELL
+    # oracle of parallel/matvec.py, on a phonon sector.
     from types import SimpleNamespace
-    from dmft_lanc_ed_tpu_torch.parallel.production import shard_sector_op
-    mesh = SimpleNamespace(device=torch.device("cpu"), size=2)
-    for kw in (dict(norb=1, nbath=3, ed_sparse_h=False),
-               dict(norb=1, nbath=3, ed_backend="direct"),
-               dict(norb=1, nbath=2, nph=2, g_ph=(0.3,), w0_ph=0.5),
-               dict(norb=2, nbath=1, uloc=(2.0, 2.0), ust=1.0, jh=0.3,
-                    jx=0.3, jp=0.3)):
+    from dmft_lanc_ed_tpu_torch.parallel.matvec import ShardedLanczos
+    from dmft_lanc_ed_tpu_torch.parallel.production import (
+        ShardedDirectOp, shard_sector_op)
+    mesh = SimpleNamespace(device=torch.device("cpu"), size=2, rank=0)
+    for kw, direct in ((dict(norb=1, nbath=3, ed_sparse_h=False), True),
+                       (dict(norb=1, nbath=3, ed_backend="direct"), True),
+                       (dict(norb=1, nbath=2, nph=2, g_ph=(0.3,),
+                             w0_ph=0.5), False),
+                       (dict(norb=2, nbath=1, uloc=(2.0, 2.0), ust=1.0,
+                             jh=0.3, jx=0.3, jp=0.3), False)):
         cfg = pt.read_input(None, **kw)
         sec = pt.SectorTable(cfg).sector(pt.qn(1, 1))
         hloc = np.zeros((1, 1, cfg.norb, cfg.norb))
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            shard_sector_op(cfg, sec, hloc, pt.init_bath(cfg), None, mesh)
+        sop = shard_sector_op(cfg, sec, hloc, pt.init_bath(cfg), None, mesh)
+        assert isinstance(sop.op, ShardedDirectOp) == direct
+        assert sop.vshape[-2] % 2 == 0 and sop.dim == sec.dim
+        if cfg.nph:
+            h = pt.build_sector_hamiltonian(cfg, sec, hloc, pt.init_bath(cfg))
+            with pytest.raises(NotImplementedError,
+                               match="phonon sectors use the replicated"):
+                ShardedLanczos(h, mesh)

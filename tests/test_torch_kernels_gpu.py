@@ -887,3 +887,109 @@ def test_ell_direct_and_band_applies_agree(cuda, sqn):
     assert y_ell.device.type == y_dir.device.type == "cuda"
     assert float((y_ell - y_ref).abs().max()) <= 1e-12 * scale
     assert float((y_dir - y_ref).abs().max()) <= 1e-12 * scale
+
+
+# the sharded direct and Jx/Jp dense operators (ROADMAP A10): (config
+# kwargs, sector) of each apply
+A10_APPLY = {
+    "direct": (dict(norb=1, nbath=9, uloc=(2.0,), ed_backend="direct"),
+               (5, 5)),
+    "jxjp": (dict(norb=2, nbath=3, uloc=(2.0, 2.0), ust=1.0, jh=0.5, jx=0.5,
+                  jp=0.5, ed_backend="dense"), (4, 4)),
+}
+
+
+def _a10_inputs(name):
+    kw, sqn = A10_APPLY[name]
+    cfg = pt.read_input(None, **kw)
+    sec = pt.SectorTable(cfg).sector(pt.qn(*sqn))
+    x = np.random.default_rng(11).standard_normal((2, sec.dim))
+    return cfg, sec, np.zeros((1, 1, cfg.norb, cfg.norb)), x
+
+
+def _a10_apply_rank(rank):
+    """The sharded direct apply and the Jx/Jp dense applies (f64 and the
+    production mixed one) of two vectors, each rank on its device."""
+    from dmft_lanc_ed_tpu_torch.parallel import production as prod
+    mesh = make_mesh(2, rank_device())
+    out = {"transport": mesh.transport, "device": str(mesh.device)}
+    for name in A10_APPLY:
+        cfg, sec, hloc, x = _a10_inputs(name)
+        sop = prod.shard_sector_op(cfg, sec, hloc, pt.init_bath(cfg), None,
+                                   mesh)
+        xp = sop.pad_flat_batch(x)
+        out[name] = {f.__name__: sop.unpad_gather(f(sop, xp))
+                     for f in {sop.exact_nd, sop.apply_nd}}
+    return out
+
+
+def test_a10_applies_over_nccl_equal_gloo(cuda, two_cards, monkeypatch):
+    """Two ranks, one card each over NCCL, against two ranks sharing one
+    card over gloo: the sharded direct and Jx/Jp dense applies bit-equal
+    (the collectives move the same numbers, and the sums run in rank
+    order), and their f64 applies within 1e-12 x max|Hv| of the one-card
+    unsharded apply."""
+    from dmft_lanc_ed_tpu_torch.ops.dense import (build_dense_op,
+                                                  matvec_dense_flat)
+    from dmft_lanc_ed_tpu_torch.ops.direct import (build_direct_op,
+                                                   matvec_direct_flat)
+    nccl = run_local_ranks(_a10_apply_rank, 2, device="cuda", timeout=300)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
+    gloo = run_local_ranks(_a10_apply_rank, 2, device="cuda", timeout=300)
+    assert [o["transport"] for o in nccl] == ["nccl", "nccl"]
+    assert [o["device"] for o in nccl] == ["cuda:0", "cuda:1"]
+    assert [o["transport"] for o in gloo] == ["gloo", "gloo"]
+    for name, (build, apply) in (("direct", (build_direct_op,
+                                             matvec_direct_flat)),
+                                 ("jxjp", (build_dense_op,
+                                           matvec_dense_flat))):
+        cfg, sec, hloc, x = _a10_inputs(name)
+        op = build(cfg, sec, hloc, pt.init_bath(cfg), cuda)
+        y_ref = apply(op, torch.as_tensor(x, device=cuda)).cpu().numpy()
+        scale = np.abs(y_ref).max()
+        for key, y in nccl[0][name].items():
+            for o in nccl[1:] + gloo:
+                assert o[name][key].tobytes() == y.tobytes(), (name, key)
+        exact = ("apply_direct_sharded" if name == "direct"
+                 else "matvec_dense_sharded")
+        assert np.abs(nccl[0][name][exact] - y_ref).max() <= 1e-12 * scale
+        if name == "jxjp":       # the production apply is the mixed one
+            assert np.abs(nccl[0][name]["matvec_dense_sharded_mixed"]
+                          - y_ref).max() <= 1e-6 * scale
+
+
+def _large_direct_rank(rank):
+    """The 2.9M-state (6,7) sector of nbath = 12 over the sharded direct
+    backend: this rank's payload and the f64 ground state."""
+    from dmft_lanc_ed_tpu_torch.ops.direct import build_direct_op
+    from dmft_lanc_ed_tpu_torch.parallel import production as prod
+    cfg = pt.read_input(None, norb=1, nbath=12, uloc=(2.0,))
+    sec = pt.SectorTable(cfg).sector(pt.qn(6, 7))
+    mesh = make_mesh(2, rank_device())
+    sop = prod.shard_direct_op(build_direct_op(
+        cfg, sec, np.zeros((1,) * 4), pt.init_bath(cfg), "cpu"), mesh, cfg)
+    v0 = sop.pad_flat(np.random.default_rng(1).standard_normal(sec.dim))
+    evals, _ = prod.sharded_ground_state(sop, 1, 24, 1e-12, v0)
+    return sop.op.nbytes, float(evals[0]), mesh.transport
+
+
+def test_sharded_direct_large_sector_ground_state(cuda):
+    """nbath = 12: the 2.9M-state (6,7) sector over two ranks (one card
+    each over NCCL, or sharing one over gloo): each rank's payload under
+    half the dense hdw's bytes, E < 0, and, beyond the JAX test's bar
+    (test_production_sharding.py:132-165), within 1e-9 of the one-card
+    direct solve."""
+    from dmft_lanc_ed_tpu_torch.ops.direct import (build_direct_op,
+                                                   matvec_direct_flat)
+    from dmft_lanc_ed_tpu_torch.ops.lanczos import lanczos_ground_state
+    out = run_local_ranks(_large_direct_rank, 2, device="cuda", timeout=600)
+    cfg = pt.read_input(None, norb=1, nbath=12, uloc=(2.0,))
+    sec = pt.SectorTable(cfg).sector(pt.qn(6, 7))
+    op = build_direct_op(cfg, sec, np.zeros((1,) * 4), pt.init_bath(cfg),
+                         cuda)
+    e_one, _ = lanczos_ground_state(op, matvec_direct_flat, sec.dim, 1,
+                                    ncv=24, tol=1e-12)
+    for payload, e, _ in out:
+        assert payload < sec.dim_dw ** 2 * 8 / 2
+        assert e < 0.0 and abs(e - e_one[0]) <= 1e-9
+        assert e == out[0][1]

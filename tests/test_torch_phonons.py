@@ -146,17 +146,30 @@ def test_bucket_op_padding_and_stack(name):
 
 
 def test_sharded_phonon_and_jxjp_sectors_raise():
-    """dw-sharded phonon and Jx/Jp sectors are not ported: the sharded
-    operator's builder refuses them, naming ROADMAP A10."""
+    """dw-sharded phonon and Jx/Jp sectors build (ROADMAP A10): this
+    rank's rows of the padded factors, the phonon axis whole. Only the
+    ELL oracle ShardedLanczos still raises on phonons, with the JAX
+    package's message."""
+    from dmft_lanc_ed_tpu_torch.parallel.matvec import ShardedLanczos
     from dmft_lanc_ed_tpu_torch.parallel.production import shard_sector_op
     mesh = types.SimpleNamespace(device=torch.device("cpu"), size=2, rank=0)
     for name in ("holstein", "jxjp"):
         kw, sqn = OPS[name]
         cfg = pt.EDConfig(**kw, ed_backend="dense")
         sec = pt.SectorTable(cfg).sector(sqn)
-        with pytest.raises(NotImplementedError, match="A10"):
-            shard_sector_op(cfg, sec, np.zeros((1, 1, cfg.norb, cfg.norb)),
-                            pt.init_bath(cfg), None, mesh)
+        hloc = np.zeros((1, 1, cfg.norb, cfg.norb))
+        sop = shard_sector_op(cfg, sec, hloc, pt.init_bath(cfg), None, mesh)
+        ddp = sop.vshape[-2]
+        assert ddp % 2 == 0 and sop.local_shape[-2] == ddp // 2
+        if name == "holstein":
+            assert sop.local_shape[0] == cfg.dim_ph
+            assert sop.op.eph_el.shape == (ddp // 2, sec.dim_up)
+            with pytest.raises(NotImplementedError,
+                               match="phonon sectors use the replicated"):
+                ShardedLanczos(pt.build_sector_hamiltonian(
+                    cfg, sec, hloc, pt.init_bath(cfg)), mesh)
+        else:
+            assert sop.op.nd_b.shape[1:] == (ddp // 2, ddp)
 
 
 # --------------------------------------------------------------------------
