@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12,13,14,15]
                           [--ghost-tol X]
 
-``--ghost-tol`` replaces ``ops.bs_chain._GHOST_TOL`` for the run: phase 4
-then measures, over all 109 band-sparse sectors, whether every chain seed
-still reaches its eta_target with that Ritz ghost-cluster tolerance.
+``--ghost-tol`` replaces ``ops.bs_chain._GHOST_TOL`` for the run: phases
+4 and 5 then measure, over their band-sparse sectors (phase 5's loop 1:
+all 109), whether every chain seed still reaches its eta_target with that
+Ritz ghost-cluster tolerance.
 
 Phases (all by default; each raises on failure and the script then exits
 nonzero without a result line):
@@ -16,7 +17,11 @@ nonzero without a result line):
 1. build the CUDA kernels from ``dmft_lanc_ed_tpu_torch/csrc`` (one nvcc
    per source, all started together; each one's seconds and warnings are
    printed, and ptxas's C7515, wgmma serialized, fails the phase), while
-   the host ARPACK oracles of phases 2-7 and 9-15 run in a thread.
+   the host ARPACK oracles of phases 2-7 and 9-15 run in two spawned
+   processes and the two ranks of phases 7 and 15 start up. Phases 2s, 6,
+   3's solve, 4 and 5 need no oracle and run before the wait on the
+   first; then 3's gate, 2, 3b, 8, 14, 9-13, and last the ranks' work for
+   7 and 15.
 2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag, B1 the
    per-call matvec, trimmed and whole-window) against its plain PyTorch
    version at the 854k-state (6,6) sector of nbath = 11, with the
@@ -51,35 +56,37 @@ nonzero without a result line):
    B1b, then the mixed top-off and f64 polish): |dE| <= 1e-10 vs ARPACK,
    and both B1 forms must launch.
 4. ``run_dmft`` of the one-orbital Bethe-lattice Hubbard model at
-   nbath = 11, T = 0, one loop (the full sector scan), on the card,
-   sectors one by one (``ed_batch_sectors=False``); every chain kernel
-   must launch in it, every chain seed must reach its eta_target
-   (``seed_counts``), outputs must be finite, 0 <= dens <= 2, and loop
-   1's Egs must equal phase 3's energy to 1e-9; the chains each B4 launch
-   carried are printed.
-5. the default configuration: phase 4 with ``ed_backend="auto"`` and
-   ``ed_batch_sectors`` left at True (small sectors solved in batched
-   buckets), 2 loops (loop 2 the restricted scan around loop 1's ground
-   state); at least one bucket solved, every chain kernel launched,
-   loop 1's energies of every Krylov sector equal phase 4's to
-   1e-9 x max(1, |E|), loop 1's Egs equal phase 3's to 1e-9, outputs
+   nbath = 11, T = 0, one loop, on the card, sectors one by one
+   (``ed_backend="pallas"``, ``ed_batch_sectors=False``), the loop's scan
+   restricted by the sector hint (``ed_sectors``, shift 1) to the 9
+   sectors around (6,6), the largest of the scan, and the 9 around (3,3);
+   every chain kernel must launch in it, every chain seed must reach its
+   eta_target (``seed_counts``), outputs must be finite, 0 <= dens <= 2,
+   and loop 1's Egs must equal phase 3's energy to 1e-9; the chains each
+   B4 launch carried are printed.
+5. the default configuration: phase 4's ``run_dmft`` with
+   ``ed_backend="auto"`` and ``ed_batch_sectors`` left at True (small
+   sectors solved in batched buckets), 2 loops (loop 1 the full 169-sector
+   scan, loop 2 the restricted scan around loop 1's ground state); at
+   least one bucket solved, every chain kernel launched, loop 1's energies
+   of phase 4's Krylov sectors equal phase 4's to 1e-9 x max(1, |E|), six
+   of them batched here, loop 1's Egs equal phase 3's to 1e-9, outputs
    finite, 0 <= dens <= 2.
 6. B5, the dw-sharded matvec, in one process at the 854k sector split over
    n = 2 shards whose halo'd rows are sliced from the whole vector: each
    shard against its plain version (y within 1e-5 x max|y|, panel sums of
    squares 1e-5 relative), the stitched shards against B1b bit for bit,
    and the time per call of both (the kernel by graph replay).
-7. two ranks sharing the card (spawned, gloo transport staged through host
-   memory): (a) the dw-sharded two-stage ground state of the 854k sector
-   (B5 under the f32 thick restart, then the top-off and f64 polish over
-   the sharded dense operator), |dE| <= 1e-9 vs phase 3's ARPACK energy,
-   B5 launched on both ranks (a direct call: its launches are printed,
-   not put in the kernel line); (b) the main path: one ``EDSolver.solve``
-   at nbath = 11 with ``mesh_shape=(2,)`` restricted to the ground-state
-   sector (6,6) (``ed_sectors``, shift 0), one state: Egs equal to phase
-   3's to 1e-9, G(iw) and Sigma(iw) against the one-rank solve of the same
-   bath and sector (gates below), B5 (the diag) and the sharded dense GF
-   route (the (7,6) and (5,6) targets) run on both ranks, both ranks'
+7. two ranks sharing the card (spawned once, at the start, for phases 7
+   and 15; gloo transport staged through host memory), the main path: one
+   ``EDSolver.solve`` at nbath = 11 with ``mesh_shape=(2,)`` restricted to
+   the ground-state sector (6,6) (``ed_sectors``, shift 0), one state. Its
+   diag is the 854k sector's dw-sharded two-stage ground state (B5 under
+   the f32 thick restart, then the top-off and f64 polish over the sharded
+   dense operator): Egs within 1e-9 of phase 3's ARPACK energy and of
+   phase 3's solve, G(iw) and Sigma(iw) against the one-rank solve of the
+   same bath and sector (gates below), B5 (the diag) and the sharded dense
+   GF route (the (7,6) and (5,6) targets) run on both ranks, both ranks'
    results identical. Times are two ranks time-sliced on one card, not a
    multi-card number.
 8. the experiment probes E1-E3 (``dmft_lanc_ed_tpu_torch/experiments``),
@@ -117,7 +124,9 @@ nonzero without a result line):
    of each diagonal one to 1 (1e-9; an exact identity of any chain),
    G_01 == G_10, Sigma finite; (b) bhz5-replica, ``models.bhz_2d.run_dmft``
    (norb = 2, nspin = 2, nbath = 5, a replica bath over the 4 symmetries
-   of the BHZ hloc, nk = 20) in the default configuration, one loop: its
+   of the BHZ hloc, nk = 20) in the default configuration, one loop, its
+   scan restricted by the sector hint to the 18 sectors around the ground
+   state's pair (5,7) and (7,5): its
    Egs against host ARPACK of the ground-state sector (1e-9), every chain
    seed at its eta_target, B2, B3 and B4 launched, every B4 launch
    carrying more than one chain, the pole-weight identities, 0 <= dens <=
@@ -196,9 +205,9 @@ nonzero without a result line):
    direct backend) and ``lanc_method="dvdson"`` in the default
    configuration (Davidson over the band-sparse mixed apply, then the f64
    polish), each Egs within 1e-10.
-15. sharded2-a10: two spawned ranks sharing the card over gloo, as in
-   phase 7, spawned once for three parts (torch ops and collectives, no
-   kernel row): (a) direct854k-sharded2, phase 3's sector under the
+15. sharded2-a10: the two ranks of phase 7, sharing the card over gloo,
+   for three parts (torch ops and collectives, no kernel row): (a)
+   direct854k-sharded2, phase 3's sector under the
    sharded direct backend: the stitched apply of 2 random vectors against
    the one-card f64 band apply (max|d| / max|Hv| <= 1e-12), pad rows
    exactly 0, each rank's op payload under half the dense hdw's bytes;
@@ -210,8 +219,10 @@ nonzero without a result line):
    norb 2, nbath 5, uloc 2, ust 1, jh = jx = jp = 0.5 ((6,6) holds 853,776
    states), the default configuration restricted to (6,6), one state: the
    log shows the band-sparse shard path refused and the sharded dense
-   backend taken, Egs against host ARPACK with every sector term (1e-10),
-   G(iw) and Sigma(iw) against the one-rank solve (phase 7(b)'s gates);
+   backend taken, Egs of the two ranks and of the one-rank solve against
+   host ARPACK with every sector term (1e-12: the mixed solve's f64
+   polish), G(iw) and Sigma(iw) against the one-rank solve (phase 7's
+   gates);
    (c) holstein7-sharded2, phase 12(a)'s model in f64 over the 9 sectors
    around (4,4): the three dim_dw = 70 sectors sharded, the rest batched,
    Egs against phase 12's ARPACK (1e-10), G(iw) and the phonon GF against
@@ -220,7 +231,8 @@ nonzero without a result line):
    printed; both ranks' results identical.
 
 The chain kernels' launches and steps of the kernel line are those of
-phases 4, 5, 9, 10, 11, 13 and 14.
+phases 4, 5, 9, 10, 11, 13 and 14. Each phase's seconds (and the waits on
+the host oracles) are printed, a line each, before the kernel table.
 
 The line before the last is the kernel table as JSON. Each kernel's bound
 is the larger of its FP32 operations over 67 TFLOP/s and its bytes, each
@@ -235,14 +247,17 @@ A chain kernel's
 (phases 4, 5, 9, 10, 11, 13 and 14 for B2-B4); its ``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
+import contextlib
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
 
 import numpy as np
 
@@ -280,7 +295,7 @@ NSHARD = 2                # phases 6 and 7: ranks of the dw split
 PEAK_FP32 = 67e12         # FLOP/s, H100 SXM outside the tensor cores
 PEAK_BF16 = 989e12        # FLOP/s, H100 SXM tensor cores, dense bf16
 PEAK_BYTES = 3.35e12      # bytes/s, H100 SXM HBM3
-# phase 7(b) gates, sharded vs one-rank G(iw) and Sigma(iw). The JAX
+# phase 7 gates, sharded vs one-rank G(iw) and Sigma(iw). The JAX
 # test's 1e-9 and 1e-7 compare two f64 solves; here the one-rank solve runs
 # its large GF targets through the chain kernel B4 (f32 vectors, six-pass
 # products of f32 fidelity) and the sharded one through the mixed-precision
@@ -292,10 +307,24 @@ P7_SIGMA_TOL = 2e-4
 # the card's name and power limit as nvidia-smi gives them (phase 0),
 # printed beside the phases' seconds
 CARD = "card not read"
+# seconds of each phase in this run (and of the waits on the host oracles)
+PHASE_S = {}
+ORACLE_PROCS = 2          # processes of the host ARPACK oracles ...
+ORACLE_THREADS = "1"      # ... and the BLAS / torch threads of each
 
 
 def say(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def timed(name):
+    """Add the seconds of the block to PHASE_S[name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
 
 
 def cuda_ms(fn, reps=1):
@@ -405,6 +434,25 @@ def gf_bound(pop, m, nb):
                     (slabs + nb * 4 * ddp * dup) / m + 16 * nb)
 
 
+def oracle_pool():
+    """ORACLE_PROCS spawned processes for the host oracles, each limited to
+    ORACLE_THREADS threads and run at the lowest priority, so that the
+    host-bound phases keep the cores they ask for (and, unlike a thread,
+    the oracles hold no GIL of this process)."""
+    keys = ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: ORACLE_THREADS for k in keys})
+    try:
+        return multiprocessing.get_context("spawn").Pool(
+            ORACLE_PROCS, initializer=os.nice, initargs=(19,))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
 def hv_f64(pop, u):
     """H_p u in f64 over the f32 operator values the kernels multiply."""
     d = pop.diag_a.double() @ pop.diag_b.double()
@@ -420,8 +468,9 @@ def phase0():
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
     global CARD
-    CARD = smi.stdout.strip()
-    say(CARD)
+    say(smi.stdout.strip())
+    # one line a card; the cards of one host share name and limit
+    CARD = "; ".join(dict.fromkeys(smi.stdout.strip().splitlines()))
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     if not torch.cuda.is_available():
@@ -887,20 +936,27 @@ def phase2s():
     return b2_steps
 
 
-def phase3(cfg, sec, op, e0):
+def phase3(cfg, sec, op):
+    """The two-stage ground state of the sector: (energy, seconds). Its
+    gate against ARPACK (phase3_gate) waits for the oracle, so phases 4
+    and 5 can run first."""
     import torch
     from dmft_lanc_ed_tpu_torch.diag import _blocksparse_ground_state
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     evals, evecs = _blocksparse_ground_state(cfg, op, sec.dim, 1, ncv=48)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    de = abs(float(evals[0]) - e0)
-    say(f"phase 3: two-stage Egs = {evals[0]:+.12f}, |dE| vs ARPACK = "
+    if not np.all(np.isfinite(evecs)):
+        raise AssertionError("two-stage ground state not finite")
+    return float(evals[0]), time.perf_counter() - t0
+
+
+def phase3_gate(e_gs, dt, e0):
+    de = abs(e_gs - e0)
+    say(f"phase 3: two-stage Egs = {e_gs:+.12f}, |dE| vs ARPACK = "
         f"{de:.3e} (gate 1e-10), {dt:.2f} s")
-    if not (de <= 1e-10 and np.all(np.isfinite(evecs))):
+    if not de <= 1e-10:
         raise AssertionError("two-stage ground state misses the gate")
-    return float(evals[0]), dt
 
 
 def phase3b(cfg, sec, op, e0):
@@ -996,16 +1052,52 @@ def _run_loop(name, cfg, e_gs):
     return res, (counts, steps), dt
 
 
+@contextlib.contextmanager
+def sector_hint(module, hints):
+    """Every EDSolver that `module` builds starts with the sector hint
+    `hints` (the restriction that a restart or an earlier loop sets under
+    ``ed_sectors``, shift ``cfg.ed_sectors_shift``): the first loop of its
+    driver scans the sectors around `hints` alone."""
+    base = module.EDSolver
+
+    class Hinted(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.diag_state.sector_hint = list(hints)
+    module.EDSolver = Hinted
+    try:
+        yield
+    finally:
+        module.EDSolver = base
+
+
+# phase 4's sector hint: the 9 sectors around (6,6), the largest of the
+# scan, and the 9 around (3,3), six of which phase 5 solves in its buckets
+P4_HINT = ((HALF, HALF), (3, 3))
+
+
+def _dim(q):
+    """States of the nbath = 11 sector q of one orbital."""
+    from math import comb
+    return comb(NBATH + 1, q[0][0]) * comb(NBATH + 1, q[1][0])
+
+
 def phase4(e_gs):
-    """Sectors one by one, through the band-sparse backend."""
-    return _run_loop("phase 4", _dmft_cfg(1, ed_backend="pallas",
-                                          ed_batch_sectors=False), e_gs)
+    """Sectors one by one, through the band-sparse backend, loop 1
+    restricted by the sector hint to the sectors around P4_HINT."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.models import hm_bethe
+    with sector_hint(hm_bethe, [pt.qn(*q) for q in P4_HINT]):
+        return _run_loop(f"phase 4 (the sectors around {list(P4_HINT)})",
+                         _dmft_cfg(1, ed_backend="pallas",
+                                   ed_batch_sectors=False), e_gs)
 
 
 def phase5(e_gs, serial):
     """The default configuration (ed_backend="auto", batched small
-    sectors); loop 1's Krylov sectors against phase 4's serial solves of
-    the same bath (both loops start from init_bath)."""
+    sectors); loop 1's Krylov sectors of phase 4's scan against its serial
+    solves (`serial`, phase 4's run) of the same bath (both loops start
+    from init_bath)."""
     from dmft_lanc_ed_tpu_torch.ops import batched as bt
     cfg = _dmft_cfg(2)
     if cfg.ed_backend != "auto" or not cfg.ed_batch_sectors:
@@ -1020,25 +1112,27 @@ def phase5(e_gs, serial):
         say("  sector energies not checked (phase 4 not run)")
         return counts, dt
     ref = {q: (e, k) for q, e, k in serial.history[0]["diag_log"]}
-    log5 = res.history[0]["diag_log"]
-    if sorted(q for q, _, _ in log5) != sorted(ref):
-        raise AssertionError("phase 5 scanned other sectors than phase 4")
-    worst, n_kry = 0.0, 0
-    for q, e, krylov in log5:
-        e_ref, k_ref = ref[q]
+    log5 = {q: (e, k) for q, e, k in res.history[0]["diag_log"]}
+    if not set(ref) <= set(log5):
+        raise AssertionError("phase 5 did not scan phase 4's sectors")
+    worst, n_kry, n_bat = 0.0, 0, 0
+    for q, (e_ref, k_ref) in ref.items():
+        e, krylov = log5[q]
         if krylov != k_ref or len(e) != len(e_ref):
             raise AssertionError(f"sector {q}: solve kind or count differs")
         if not krylov:
             continue
         n_kry += 1
+        n_bat += _dim(q) <= cfg.ed_batch_dim_max
         e, e_ref = np.asarray(e), np.asarray(e_ref)
         worst = max(worst, float((np.abs(e - e_ref)
                                   / np.maximum(1.0, np.abs(e_ref))).max()))
-    say(f"  loop 1, {n_kry} Krylov sectors: max |dE| / max(1, |E|) vs "
-        f"phase 4 = {worst:.3e} (tol 1e-9)")
-    if not worst <= 1e-9:
+    say(f"  loop 1, {n_kry} Krylov sectors of phase 4, {n_bat} of them in "
+        f"buckets here: max |dE| / max(1, |E|) vs phase 4 = {worst:.3e} "
+        f"(tol 1e-9)")
+    if not (worst <= 1e-9 and n_bat > 0):
         raise AssertionError("batched sector energies differ from the "
-                             "serial ones")
+                             "serial ones, or none was batched")
     return counts, dt
 
 
@@ -1301,7 +1395,7 @@ def phase8(op, earlier, b2_steps):
 
 
 def _p7_cfg(**kw):
-    """Phase 7(b): nbath = 11, T = 0, the sector (6,6) alone, one state,
+    """Phase 7: nbath = 11, T = 0, the sector (6,6) alone, one state,
     cut from the 9 sectors within 1 of (6,6) to keep the script's time."""
     import dmft_lanc_ed_tpu_torch as pt
     return pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,), beta=100.0,
@@ -1324,97 +1418,124 @@ def _p7_solve(cfg, device, sqn=(HALF, HALF)):
 
 
 def phase7_rank(rank):
-    """One of NSHARD ranks sharing the card: (a) the 854k sharded ground
-    state, (b) the restricted sharded solve; launch counts set to 0 just
-    before each and read just after."""
-    import torch
-    import dmft_lanc_ed_tpu_torch as pt
-    from dmft_lanc_ed_tpu_torch.ops.blocksparse import build_blocksparse_op
+    """One of NSHARD ranks sharing the card: the restricted sharded solve
+    (its diag is the 854k sector's dw-sharded two-stage ground state: B5
+    under the f32 thick restart, then the top-off and f64 polish over the
+    sharded dense operator), launch counts set to 0 just before and read
+    just after."""
     from dmft_lanc_ed_tpu_torch.parallel import bs_sharded as bsh
     from dmft_lanc_ed_tpu_torch.parallel import production as prod
     from dmft_lanc_ed_tpu_torch.parallel.mesh import make_mesh
     from dmft_lanc_ed_tpu_torch.parallel.multihost import rank_device
     dev = rank_device(DEVICE)
     mesh = make_mesh(NSHARD, dev)
-    cfg = pt.EDConfig(norb=1, nbath=NBATH, uloc=(2.0,))
-    sec = pt.SectorTable(cfg).sector(pt.qn(HALF, HALF))
-    h = pt.build_sector_hamiltonian(cfg, sec, np.zeros((1, 1, 1, 1)),
-                                    pt.init_bath(cfg))
-    op = build_blocksparse_op(h, "cpu")
-    bsh.reset_launch_counts()
-    prod.reset_apply_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    vals, vecs = bsh.bs_sharded_ground_state(cfg, op, mesh, 1, ncv=48)
-    torch.cuda.synchronize()
-    out = dict(transport=mesh.transport, device=str(dev),
-               e_a=float(vals[0]), t_a=time.perf_counter() - t0,
-               vec_a=vecs[0][:64].copy(),
-               b5_a=bsh.launch_counts["sharded_matvec"],
-               dense_a=prod.apply_counts["dense_sharded"])
     bsh.reset_launch_counts()
     prod.reset_apply_counts()
     res, t_b = _p7_solve(_p7_cfg(mesh_shape=(NSHARD,)), dev)
-    out.update(t_b=t_b, egs=res.state_list.emin, g_mats=res.g_mats,
-               sigma_mats=res.sigma_mats, timings=res.timings,
-               routing=res.gf.routing,
-               sectors=[q for q, _, _ in res.state_list.diag_log],
-               b5_b=bsh.launch_counts["sharded_matvec"],
-               dense_b=prod.apply_counts["dense_sharded"],
-               gf_b=prod.apply_counts["gf_chains"])
+    return dict(transport=mesh.transport, device=str(dev), t_b=t_b,
+                egs=res.state_list.emin, g_mats=res.g_mats,
+                sigma_mats=res.sigma_mats, timings=res.timings,
+                routing=res.gf.routing,
+                sectors=[q for q, _, _ in res.state_list.diag_log],
+                b5_b=bsh.launch_counts["sharded_matvec"],
+                dense_b=prod.apply_counts["dense_sharded"],
+                gf_b=prod.apply_counts["gf_chains"])
+
+
+def sharded_rank(rank, go):
+    """One of the NSHARD ranks of phases 7 and 15, spawned once for both
+    while the phases before them run: it waits for the file `go`, then
+    runs phase7_rank's and phase15_rank's work for the phases it names
+    (none: the script stopped early)."""
+    while not os.path.exists(go):
+        time.sleep(0.05)
+    with open(go) as fh:
+        parts = fh.read().split()
+    out = {}
+    if "7" in parts:
+        out["7"] = phase7_rank(rank)
+    if "15" in parts:
+        out["15"] = phase15_rank(rank)
     return out
 
 
-def phase7(e0, e_gs):
-    """NSHARD spawned ranks sharing the card (phase7_rank), against phase
-    3's energies and the one-rank solve of the same bath and sectors."""
+def spawn_ranks(go):
+    """Spawn the NSHARD ranks of phases 7 and 15 in the background; they
+    start their work when `go` appears (release_ranks). Returns the
+    thread pool that waits on them and their pending outputs."""
+    from concurrent.futures import ThreadPoolExecutor
     from dmft_lanc_ed_tpu_torch.parallel.multihost import run_local_ranks
+    waiter = ThreadPoolExecutor(1)
+    return waiter, waiter.submit(run_local_ranks, sharded_rank, NSHARD,
+                                 args=(go,), device=DEVICE, timeout=1200)
+
+
+def release_ranks(go, parts):
+    """Name the phases the waiting ranks run (none stops them)."""
+    with open(go + ".tmp", "w") as fh:
+        fh.write(" ".join(sorted(parts)))
+    os.replace(go + ".tmp", go)
+
+
+def sharded_ranks(go, pending, parts):
+    """Release the ranks for the phases in `parts` (7, 15) and wait for
+    them; each phase's outputs, rank by rank."""
     t0 = time.perf_counter()
-    out = run_local_ranks(phase7_rank, NSHARD, device=DEVICE, timeout=600)
-    t_ranks = time.perf_counter() - t0
+    release_ranks(go, parts)
+    out = pending.result()
+    say(f"phases {' and '.join(sorted(parts, key=int))}: {NSHARD} ranks "
+        f"(spawned at the start), {time.perf_counter() - t0:.1f} s from "
+        f"their release ({CARD})")
+    return {p: [o[p] for o in out] for p in parts}
+
+
+def ranks_on(out):
+    """The ranks' devices and transport, and what their times are."""
+    devs = sorted({o["device"] for o in out})
+    shared = ("time-sliced on one card, not a multi-card number"
+              if len(devs) == 1 else "one card a rank")
+    return f"{NSHARD} ranks on {devs}, transport {out[0]['transport']} " \
+           f"({shared})"
+
+
+def phase7(e0, e_gs, out):
+    """The NSHARD ranks' phase7_rank outputs `out` against phase 3's
+    energies and the one-rank solve of the same bath and sectors."""
     r0 = out[0]
-    say(f"phase 7: {NSHARD} ranks on {r0['device']}, transport "
-        f"{r0['transport']}, {t_ranks:.1f} s with spawn (time-sliced on one "
-        f"card, not a multi-card number)")
+    say(f"phase 7: {ranks_on(out)}")
+    ref_e = e0 if e_gs is None else e_gs
     for r, o in enumerate(out):
-        say(f"  rank {r}: (a) 854k sharded Egs {o['e_a']:+.12f}, |dE| vs "
-            f"ARPACK {abs(o['e_a'] - e0):.3e} (gate 1e-9), {o['t_a']:.2f} s, "
-            f"B5 launches {o['b5_a']} (direct call, not the main path's), "
-            f"top-off sharded dense applies {o['dense_a']}; (b) Egs "
-            f"{o['egs']:+.12f} in {o['t_b']:.2f} s (diag "
-            f"{o['timings']['diag']:.2f} s, gf {o['timings']['gf']:.2f} s), "
-            f"B5 launches {o['b5_b']}, sharded dense applies {o['dense_b']} "
-            f"(diag top-off and GF), sharded GF chains {o['gf_b']}, gf "
-            f"routing {o['routing']}")
-        if not (abs(o["e_a"] - e0) <= 1e-9 and o["b5_a"] > 0):
-            raise AssertionError(f"rank {r}: sharded ground state misses the "
-                                 "gate or never launched B5")
-        if not (o["b5_b"] > 0 and o["gf_b"] > 0):
-            raise AssertionError(f"rank {r}: the sharded solve skipped B5 or "
-                                 "the sharded dense GF route")
+        say(f"  rank {r}: Egs {o['egs']:+.12f}, |dE| vs ARPACK "
+            f"{abs(o['egs'] - e0):.3e} (gate 1e-9), in {o['t_b']:.2f} s "
+            f"(diag {o['timings']['diag']:.2f} s, gf "
+            f"{o['timings']['gf']:.2f} s), B5 launches {o['b5_b']}, sharded "
+            f"dense applies {o['dense_b']} (diag top-off and GF), sharded GF "
+            f"chains {o['gf_b']}, gf routing {o['routing']}")
+        if not (abs(o["egs"] - e0) <= 1e-9 and o["b5_b"] > 0
+                and o["gf_b"] > 0):
+            raise AssertionError(f"rank {r}: the sharded solve misses ARPACK "
+                                 "or skipped B5 or the sharded dense GF "
+                                 "route")
     for o in out[1:]:
-        if not (o["e_a"] == r0["e_a"] and np.array_equal(o["vec_a"],
-                                                         r0["vec_a"])
-                and o["egs"] == r0["egs"]
+        if not (o["egs"] == r0["egs"]
                 and np.array_equal(o["g_mats"], r0["g_mats"])):
             raise AssertionError("the ranks' results differ")
     ref, t_ref = _p7_solve(_p7_cfg(), DEVICE)
     d_g = float(np.abs(r0["g_mats"] - ref.g_mats).max())
     d_s = float(np.abs(r0["sigma_mats"] - ref.sigma_mats).max())
-    say(f"  (b) one-rank solve {t_ref:.2f} s, Egs {ref.state_list.emin:+.12f}"
+    say(f"  one-rank solve {t_ref:.2f} s, Egs {ref.state_list.emin:+.12f}"
         f", sectors {len(r0['sectors'])}; sharded vs one-rank: max|dG(iw)| "
         f"{d_g:.3e}, max|dSigma(iw)| {d_s:.3e} (max|G| "
         f"{float(np.abs(ref.g_mats).max()):.3e}, max|Sigma| "
         f"{float(np.abs(ref.sigma_mats).max()):.3e})")
-    ref_e = e0 if e_gs is None else e_gs
-    say(f"  (b) Egs vs phase 3 {ref_e:+.12f}: |d| = "
+    say(f"  Egs vs phase 3 {ref_e:+.12f}: |d| = "
         f"{abs(r0['egs'] - ref_e):.3e} (tol 1e-9)")
     if not abs(r0["egs"] - ref_e) <= 1e-9:
         raise AssertionError("the sharded solve's Egs differs from phase 3")
     if not (d_g <= P7_G_TOL and d_s <= P7_SIGMA_TOL):
         raise AssertionError("the sharded solve's G or Sigma differs from "
                              "the one-rank solve")
-    # the main path's launches: 7(b)'s, both ranks
+    # the main path's launches, both ranks
     return {"sharded_matvec": sum(o["b5_b"] for o in out)}
 
 
@@ -1425,6 +1546,8 @@ BHZ = dict(nk=20, m0=1.0, lam=0.3, t=0.5)   # the driver's own defaults
 # on an H100 by this phase): its ARPACK runs beside the build, another
 # sector's after the loop
 P9B_GS = (HALF - 1, HALF + 1)
+# 9(b)'s loop 1 scans the sectors around the ground state's pair alone
+P9B_HINT = (P9B_GS, P9B_GS[::-1])
 P9_POLE_TOL = 1e-9
 
 
@@ -1575,7 +1698,8 @@ def phase9b(oracle):
     from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
     bc.reset_launch_counts()
     t0 = time.perf_counter()
-    res = bhz_2d.run_dmft(cfg, device=DEVICE, verbose=False, **BHZ)
+    with sector_hint(bhz_2d, [pt.qn(*q) for q in P9B_HINT]):
+        res = bhz_2d.run_dmft(cfg, device=DEVICE, verbose=False, **BHZ)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts, steps, seeds, chains = _chain_counts()
@@ -2037,6 +2161,7 @@ def phase12(oracles):
         de = abs(res.state_list.emin - e_ref)
         f64 = dict(ed_precision="f64")
         rb, dt_b, bk_b = _p12_solve(cfg.replace(**f64), sqn)
+        _ONE_RANK[name] = rb, dt_b
         rs, dt_s, bk_s = _p12_solve(cfg.replace(ed_batch_sectors=False,
                                                 **f64), sqn)
         d_e = abs(rb.state_list.emin - rs.state_list.emin)
@@ -2219,7 +2344,8 @@ def phase13(oracle):
 
 # phase 14: the stored, direct and Davidson backends at the 854k sector
 P14_VECS = 3
-# the one-rank solve phases 14 and 15(a) share (ed_sparse_h=F at (6,6))
+# one-rank solves that phase 15 shares: phase 14's (ed_sparse_h=F at (6,6))
+# for 15(a), phase 12's f64 batched ones (holstein7) for 15(c)
 _ONE_RANK = {}
 
 
@@ -2351,6 +2477,9 @@ P15_JXJP = dict(norb=2, nbath=5, uloc=(2.0, 2.0), ust=1.0, jh=0.5, jx=0.5,
 P15_VECS = 2              # random vectors of the apply check
 P15_REPS = 5              # applies and transposes a timing
 P15_SEED = 15
+# (b)'s energy gate, one rank and two: the mixed solve's f64 polish runs
+# until its residual or its values settle (ops/lanczos.refine_eigenpairs)
+P15_JXJP_TOL = 1e-12
 
 
 def wall_ms(fn, reps):
@@ -2528,20 +2657,15 @@ def phase15_rank(rank):
     return out
 
 
-def phase15(e0, ref_y, oracles):
-    """sharded2-a10: NSHARD spawned ranks sharing the card (phase15_rank)
-    against phase 3's ARPACK energy and the one-card band apply (`ref_y`,
+def phase15(e0, ref_y, oracles, out):
+    """sharded2-a10: the NSHARD ranks' phase15_rank outputs `out` against
+    phase 3's ARPACK energy and the one-card band apply (`ref_y`,
     phase15_ref), the host ARPACK oracles and the one-rank solves."""
     import dmft_lanc_ed_tpu_torch as pt
-    from dmft_lanc_ed_tpu_torch.parallel.multihost import run_local_ranks
     from dmft_lanc_ed_tpu_torch.solver import bosonic_grid
-    t_all = time.perf_counter()
-    out = run_local_ranks(phase15_rank, NSHARD, device=DEVICE, timeout=600)
-    t_ranks = time.perf_counter() - t_all
     r0 = out[0]
-    say(f"phase 15 sharded2-a10: {NSHARD} ranks on {r0['device']}, "
-        f"transport {r0['transport']}, {t_ranks:.1f} s with spawn "
-        f"(time-sliced on one card, not a multi-card number; {CARD})")
+    say(f"phase 15 sharded2-a10: {ranks_on(out)}, ranks' parts "
+        f"{sum(r0[p]['t_all'] for p in 'abc'):.1f} s ({CARD})")
 
     def same(part):
         return all(o[part]["solve"]["egs"] == r0[part]["solve"]["egs"]
@@ -2597,6 +2721,7 @@ def phase15(e0, ref_y, oracles):
     s = b["solve"]
     ref, t_ref = _p7_solve(_p15_cfg(P15_JXJP), DEVICE)
     de = abs(s["egs"] - oracles["jxjp"])
+    de_one = abs(ref.state_list.emin - oracles["jxjp"])
     d_g = float(np.abs(s["g_mats"] - ref.g_mats).max())
     d_s = float(np.abs(s["sigma_mats"] - ref.sigma_mats).max())
     dg_b, gf_b = counts(s, "dense_sharded")
@@ -2604,8 +2729,8 @@ def phase15(e0, ref_y, oracles):
                "unavailable" in ln and ln.endswith("sharded dense backend")]
     say(f"  (b) jxjp2-854k-sharded2 ((6,6) {oracles['dim']} states): Egs "
         f"{s['egs']:+.12f}, host ARPACK {oracles['jxjp']:+.12f}, |dE| "
-        f"{de:.3e} (gate 1e-10; the one-rank solve's "
-        f"{abs(ref.state_list.emin - oracles['jxjp']):.3e}); {s['t']:.2f} s "
+        f"{de:.3e}, the one-rank solve's {de_one:.3e} (gate "
+        f"{P15_JXJP_TOL:g}); {s['t']:.2f} s "
         f"(diag {s['timings']['diag']:.2f}, gf {s['timings']['gf']:.2f}) vs one "
         f"rank {t_ref:.2f} s: G(iw) {d_g:.3e} (2e-5), Sigma(iw) {d_s:.3e} "
         f"(2e-4); dense_sharded applies diag {dg_b}, gf {gf_b}; "
@@ -2615,7 +2740,7 @@ def phase15(e0, ref_y, oracles):
     if not refused:
         raise AssertionError("(b) did not log the band-sparse shard path "
                              "refused and the sharded dense backend")
-    if not de <= 1e-10:
+    if not (de <= P15_JXJP_TOL and de_one <= P15_JXJP_TOL):
         raise AssertionError("(b) misses the ARPACK energy")
     if not (d_g <= P7_G_TOL and d_s <= P7_SIGMA_TOL):
         raise AssertionError("(b) differs from the one-rank solve")
@@ -2634,7 +2759,7 @@ def phase15(e0, ref_y, oracles):
                            c["gs_qn"])
         e_ref = host_ground_state(h, sec, f" {name} {c['gs_qn']}")[0]
     cfg = _p15c_cfg()
-    ref, t_ref = _p7_solve(cfg, DEVICE, sqn)
+    ref, t_ref = _ONE_RANK.get(name) or _p7_solve(cfg, DEVICE, sqn)
     de = abs(s["egs"] - e_ref)
     d_g = float(np.abs(s["g_mats"] - ref.g_mats).max())
     d_ph = float(np.abs(c["gf_phonon"] - ref.gf_phonon.matsubara(
@@ -2654,7 +2779,6 @@ def phase15(e0, ref_y, oracles):
         raise AssertionError("(c): not the three dim_dw = 70 sectors "
                              "sharded and the rest batched, or the ranks "
                              "differ")
-    say(f"phase 15: {time.perf_counter() - t_all:.1f} s ({CARD})")
 
 
 def main():
@@ -2679,8 +2803,11 @@ def main():
         return 3
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
+    oracle = waiter = None
+    go = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "go")
     try:
-        phase0()
+        with timed("0"):
+            phase0()
         if args.ghost_tol is not None:
             from dmft_lanc_ed_tpu_torch.ops import bs_chain
             say(f"_GHOST_TOL {bs_chain._GHOST_TOL} -> {args.ghost_tol}")
@@ -2689,80 +2816,112 @@ def main():
         e_gs = serial = None
         e0 = arpack = p9_oracle = p10_oracle = p12_oracle = None
         p13_oracle = p15_oracle = p15_ref = None
-        # the host oracles run in a thread while nvcc builds
-        oracle = ThreadPoolExecutor(1)
+        # the host oracles run in their own processes while nvcc builds
+        # and the first phases run
+        oracle = oracle_pool()
+        if phases & {"7", "15"}:
+            waiter, pending = spawn_ranks(go)
+
+        def result(pending):
+            with timed("oracle wait"):
+                return pending.get()
         on_854k = phases & {"2", "2s", "3", "3b", "6", "7", "8", "14", "15"}
         if on_854k:
-            cfg, sec, h, op = sector_854k()
+            with timed("854k build"):
+                cfg, sec, h, op = sector_854k()
             if phases & {"2", "3", "3b", "7", "14", "15"}:
-                arpack = oracle.submit(host_ground_state, h, sec)
+                arpack = oracle.apply_async(host_ground_state, (h, sec))
         if "9" in phases:
-            p9_oracle = oracle.submit(phase9_oracles)
+            p9_oracle = oracle.apply_async(phase9_oracles)
         if phases & {"10", "11"}:
             # phase 11 solves phase 10's model at the same bath and sector
-            p10_oracle = oracle.submit(phase10_oracle)
+            p10_oracle = oracle.apply_async(phase10_oracle)
         if "12" in phases:
-            p12_oracle = oracle.submit(phase12_oracles)
+            p12_oracle = oracle.apply_async(phase12_oracles)
         if "13" in phases:
-            p13_oracle = oracle.submit(phase13_oracle)
+            p13_oracle = oracle.apply_async(phase13_oracle)
         if "15" in phases:
-            p15_oracle = oracle.submit(phase15_oracles, "12" not in phases)
+            p15_oracle = oracle.apply_async(phase15_oracles,
+                                            ("12" not in phases,))
+        oracle.close()            # the workers exit once the oracles are in
         if "1" in phases:
-            phase1()
+            with timed("1"):
+                phase1()
         if on_854k:
-            if arpack is not None:
-                e0, v_gs = arpack.result()
-            if "2" in phases:
-                rows = phase2(op, e0, v_gs)
-            b2_steps = {}
+            # 2s, 6, 3's solve, 4 and 5 need no oracle: they run while the
+            # first ARPACK does
+            b2_steps, rows6 = {}, []
             if "2s" in phases:
-                b2_steps = phase2s()
-            if "3" in phases:
-                e_gs, _ = phase3(cfg, sec, op, e0)
-            if "3b" in phases:
-                counts.update(phase3b(cfg, sec, op, e0)[0])
+                with timed("2s"):
+                    b2_steps = phase2s()
             if "6" in phases:
-                rows += phase6(op)
-            if "8" in phases:
-                r8, c8, s8 = phase8(op, rows, b2_steps)
-                rows += r8
-                counts.update(c8)
-                steps.update(s8)
-            if "14" in phases:
-                p14 = phase14(cfg, sec, h, op, e0)
-            if "15" in phases:
-                p15_ref = phase15_ref(op)
-            del op
-            _SECTORS.clear()
+                with timed("6"):
+                    rows6 = phase6(op)
+            if "3" in phases:
+                with timed("3"):
+                    e_gs, t3 = phase3(cfg, sec, op)
         if "4" in phases:
-            serial, (c4, s4), _ = phase4(e_gs)
+            with timed("4"):
+                serial, (c4, s4), _ = phase4(e_gs)
             counts.update(c4)
             steps.update(s4)
         if "5" in phases:
             # the chain kernels' launches are those of phases 4 and 5
-            c5, s5 = phase5(e_gs, serial)[0]
+            with timed("5"):
+                c5, s5 = phase5(e_gs, serial)[0]
             for tot, add in ((counts, c5), (steps, s5)):
                 for k, n in add.items():
                     tot[k] = tot.get(k, 0) + n
-        if "7" in phases:
-            counts.update(phase7(e0, e_gs))
+        if on_854k:
+            if arpack is not None:
+                e0, v_gs = result(arpack)
+            if "3" in phases:
+                phase3_gate(e_gs, t3, e0)
+            if "2" in phases:
+                with timed("2"):
+                    rows = phase2(op, e0, v_gs)
+            rows += rows6
+            if "3b" in phases:
+                with timed("3b"):
+                    counts.update(phase3b(cfg, sec, op, e0)[0])
+            if "8" in phases:
+                with timed("8"):
+                    r8, c8, s8 = phase8(op, rows, b2_steps)
+                rows += r8
+                counts.update(c8)
+                steps.update(s8)
+            if "14" in phases:
+                with timed("14"):
+                    p14 = phase14(cfg, sec, h, op, e0)
+            if "15" in phases:
+                with timed("15"):
+                    p15_ref = phase15_ref(op)
+            del op
+            _SECTORS.clear()
         if "9" in phases:
-            p9 = p9_oracle.result()
-            t9 = time.perf_counter()
-            for c9, s9, _ in (phase9a(p9["hybrid"]), phase9b(p9)):
-                for tot, add in ((counts, c9), (steps, s9)):
-                    for k, n in add.items():
-                        tot[k] = tot.get(k, 0) + n
-            say(f"phase 9: {time.perf_counter() - t9:.1f} s")
+            p9 = result(p9_oracle)
+            with timed("9"):
+                for c9, s9, _ in (phase9a(p9["hybrid"]), phase9b(p9)):
+                    for tot, add in ((counts, c9), (steps, s9)):
+                        for k, n in add.items():
+                            tot[k] = tot.get(k, 0) + n
         later = []
         if "10" in phases:
-            later.append(phase10(p10_oracle.result()))
+            p10 = result(p10_oracle)
+            with timed("10"):
+                later.append(phase10(p10))
         if "11" in phases:
-            later.append(phase11(p10_oracle.result()))
+            p10 = result(p10_oracle)
+            with timed("11"):
+                later.append(phase11(p10))
         if "12" in phases:
-            phase12(p12_oracle.result())
+            p12 = result(p12_oracle)
+            with timed("12"):
+                phase12(p12)
         if "13" in phases:
-            later.append(phase13(p13_oracle.result()))
+            p13 = result(p13_oracle)
+            with timed("13"):
+                later.append(phase13(p13))
         if "14" in phases:
             later.append(p14 + (None,))
         for c_n, s_n, _ in later:
@@ -2770,17 +2929,36 @@ def main():
                 for k, n in add.items():
                     tot[k] = tot.get(k, 0) + n
         if "15" in phases:
-            p15 = p15_oracle.result()
+            p15 = result(p15_oracle)
             if "holstein7" not in p15:
-                p15["holstein7"] = p12_oracle.result()["holstein7"]
-            phase15(e0, p15_ref, p15)
-        oracle.shutdown()
+                p15["holstein7"] = result(p12_oracle)["holstein7"]
+        ranks = {}
+        if phases & {"7", "15"}:
+            with timed("7, 15: ranks"):
+                ranks = sharded_ranks(go, pending, phases & {"7", "15"})
+        if "7" in phases:
+            with timed("7"):
+                counts.update(phase7(e0, e_gs, ranks["7"]))
+        if "15" in phases:
+            with timed("15"):
+                phase15(e0, p15_ref, p15, ranks["15"])
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        if oracle is not None:
+            oracle.terminate()
+            oracle.join()
+        if waiter is not None:
+            if not os.path.exists(go):
+                release_ranks(go, ())
+            waiter.shutdown()
+        shutil.rmtree(os.path.dirname(go))
     if "jax" in sys.modules or "dmft_lanc_ed_tpu" in sys.modules:
         print("chip_smoke: the JAX package was imported", file=sys.stderr)
         return 1
+    for name, sec_n in PHASE_S.items():
+        say(f"seconds, phase {name}: {sec_n:.1f} ({CARD})")
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [

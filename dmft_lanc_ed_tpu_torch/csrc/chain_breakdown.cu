@@ -40,8 +40,9 @@
 // and the two bf16 parts of each, parts [2, 2, ddp, dup]. The product reads
 // only the parts; the epilogue that writes a vector's final value writes
 // its parts (pass 1, or pass 0 in nop1 and bf16pair). The output tile is
-// B2's (pick_bn<2>: 64 x 32 where the grid is resident at once, else 64 x
-// 64 or 64 x 128; 854k: 64 x 64).
+// 64 x 64 at every shape: the tile B2's rule (pick_bn<2>) takes at the
+// 854k sector, where the probe measures. One width keeps the file at five
+// instantiations, a third of the build of all three widths.
 //
 // What bounds it. A step is one H u, 3 x 1.97 GFLOP of bf16 tensor-core
 // products over the nonzero window tiles at the 854k-state (6,6) sector of
@@ -242,11 +243,9 @@ cudaError_t run_chain(const BdArgs& a, int kk, int* launches,
 }
 
 template <int MODE>
-cudaError_t run_mode(int bn, const BdArgs& a, int kk, int* launches,
+cudaError_t run_mode(const BdArgs& a, int kk, int* launches,
                      cudaStream_t s) {
-  if (bn == 32) return run_chain<32, MODE>(a, kk, launches, s);
-  if (bn == 64) return run_chain<64, MODE>(a, kk, launches, s);
-  return run_chain<128, MODE>(a, kk, launches, s);
+  return run_chain<64, MODE>(a, kk, launches, s);
 }
 
 }  // namespace
@@ -279,9 +278,6 @@ int bd_chain(const void* dw_hi, const void* dw_lo, const void* up_hi,
       || (skip && (dw_ptr == nullptr || dw_tab == nullptr
                    || up_ptr == nullptr || up_tab == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int sms = sm_count();
-  if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  const int bn = pick_bn<2>(ddp, dup, 1, sms);
   BdArgs a{};
   a.op.dw[0] = static_cast<const bf16*>(dw_hi);
   a.op.dw[1] = static_cast<const bf16*>(dw_lo);
@@ -303,11 +299,11 @@ int bd_chain(const void* dw_hi, const void* dw_lo, const void* up_hi,
   a.g = g;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case M1PASS: return (int)run_mode<M1PASS>(bn, a, kk, launches, s);
-    case MPAIR: return (int)run_mode<MPAIR>(bn, a, kk, launches, s);
-    case MNOP1: return (int)run_mode<MNOP1>(bn, a, kk, launches, s);
-    case MSKIP: return (int)run_mode<MSKIP>(bn, a, kk, launches, s);
-    default: return (int)run_mode<M3PASS>(bn, a, kk, launches, s);
+    case M1PASS: return (int)run_mode<M1PASS>(a, kk, launches, s);
+    case MPAIR: return (int)run_mode<MPAIR>(a, kk, launches, s);
+    case MNOP1: return (int)run_mode<MNOP1>(a, kk, launches, s);
+    case MSKIP: return (int)run_mode<MSKIP>(a, kk, launches, s);
+    default: return (int)run_mode<M3PASS>(a, kk, launches, s);
   }
 }
 

@@ -24,6 +24,10 @@ kernel refuses them, ``ops/blocksparse.py``). Two precisions:
   see the package ``__init__``) with the diagonal and the phonon-number
   term in f64, ~1e-7 relative.
 
+The JAX package's third, ``fast`` (:func:`matvec_dense_fast`), runs the
+same f32 factors at the TPU's 3-pass bf16 precision, an approximation of
+true-f32 products; here it is the mixed apply under its name.
+
 Every apply takes ``[..., dim]`` (flat) or ``[..., (DimPh,) DimDw,
 DimUp]`` vectors: a leading batch dimension replaces the JAX ``vmap``. A
 stacked op (``ops/batched.stack_ops``: every field [B, ...]) applies to
@@ -200,3 +204,9 @@ def matvec_dense_flat(op: DenseSectorOp, v_flat: torch.Tensor
 def matvec_dense_mixed_flat(op: DenseSectorOp, v_flat: torch.Tensor
                             ) -> torch.Tensor:
     return matvec_dense_mixed(op, _nd(op, v_flat)).reshape(v_flat.shape)
+
+
+# "fast": the TPU's 3-pass bf16 products stand for true-f32 ones, which the
+# mixed apply computes (factory.resolve_precision runs "fast" as "mixed")
+matvec_dense_fast = matvec_dense_mixed
+matvec_dense_fast_flat = matvec_dense_mixed_flat

@@ -147,3 +147,11 @@ def matvec_flat(op: EllSectorOp, v_flat: torch.Tensor) -> torch.Tensor:
     v = v_flat.reshape(v_flat.shape[:-1] + op.vshape)
     return apply_h(op, v).reshape(v_flat.shape)
 
+
+def make_matvec(op: EllSectorOp):
+    """Closure ``mv(v_flat) -> H v_flat`` over one sector's ELL operator
+    (the JAX package's jitted closure; here each call runs the gathers on
+    the op's device)."""
+    def mv(v_flat: torch.Tensor) -> torch.Tensor:
+        return matvec_flat(op, v_flat)
+    return mv

@@ -151,14 +151,20 @@ class ShardedSectorOp:
         """Flat logical vector -> this rank's rows of the padded vector."""
         return self.pad_flat_batch(np.asarray(v_flat)[None])[0]
 
+    def unpad_flat(self, v_nd) -> np.ndarray:
+        """Padded whole vector (every rank's rows, natural shape) -> flat
+        logical vector, host f64."""
+        v = torch.as_tensor(v_nd).reshape(self.vshape)[..., :self.dim_dw, :]
+        return v.reshape(-1).double().cpu().numpy()
+
     def unpad_gather(self, v_loc) -> np.ndarray:
         """This rank's rows of k vectors ([k, prod(local_shape)] or [k,
         *local_shape]) -> the whole logical vectors [k, dim], host f64, on
         every rank."""
         v = torch.as_tensor(v_loc, device=self.device)
         v = v.reshape((v.shape[0],) + self.local_shape)
-        full = self.mesh.allgather_rows(v)[..., :self.dim_dw, :]
-        return full.reshape(v.shape[0], -1).double().cpu().numpy()
+        full = self.mesh.allgather_rows(v)
+        return np.stack([self.unpad_flat(f) for f in full])
 
 
 # --------------------------------------------------------------------------
