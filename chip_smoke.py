@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12,13,14,15]
+    python3 chip_smoke.py [--phases 0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12,13,14,15,16]
                           [--ghost-tol X]
 
 ``--ghost-tol`` replaces ``ops.bs_chain._GHOST_TOL`` for the run: phases
@@ -17,11 +17,11 @@ nonzero without a result line):
 1. build the CUDA kernels from ``dmft_lanc_ed_tpu_torch/csrc`` (one nvcc
    per source, all started together; each one's seconds and warnings are
    printed, and ptxas's C7515, wgmma serialized, fails the phase), while
-   the host ARPACK oracles of phases 2-7 and 9-15 run in two spawned
+   the host ARPACK oracles of phases 2-7 and 9-16 run in two spawned
    processes and the two ranks of phases 7 and 15 start up. Phases 2s, 6,
    3's solve, 4 and 5 need no oracle and run before the wait on the
-   first; then 3's gate, 2, 3b, 8, 14, 9-13, and last the ranks' work for
-   7 and 15.
+   first; then 3's gate, 2, 3b, 8 and 14 (the phases that time kernels),
+   and then 9-13 and 16 beside the ranks' work for 7 and 15.
 2. each kernel (B2 tridiag, B3 Chebyshev, B4 batched GF tridiag, B1 the
    per-call matvec, trimmed and whole-window) against its plain PyTorch
    version at the 854k-state (6,6) sector of nbath = 11, with the
@@ -43,7 +43,8 @@ nonzero without a result line):
    at the same sectors, and B5 (one of 2 shards) where the sector shards
    over 2 ranks ((6,6) alone), by graph replay; B4, 200 steps, by events,
    one chain at the GF target (7,6) (924 x 792, padded 1024 x 896), at
-   (6,6) and at (3,4), and four and seven chains at (6,6) (seven: a
+   (6,6) and at (3,4), two at (7,6) (the largest batch of phase 16's
+   finite-T loops), and four and seven chains at (6,6) (seven: a
    susceptibility's batch in three orbitals, phase 11); each with its
    bound.
    Only the wrappers' public calls are timed, so the script run from a
@@ -122,7 +123,14 @@ nonzero without a result line):
    through B4 against the true-f32 plain chain (G(iw) 2e-5, phase 2's
    gate), the pole weights of each off-diagonal channel summing to 0 and
    of each diagonal one to 1 (1e-9; an exact identity of any chain),
-   G_01 == G_10, Sigma finite; (b) bhz5-replica, ``models.bhz_2d.run_dmft``
+   G_01 == G_10, Sigma finite; G(iw) within B4's contract (2e-5 x
+   max|G|) of the f64 chains from the same state and start vectors (every
+   chain through the f64 scan over its target's exact apply,
+   ``f64_reference``), and G(w) and Sigma(w), at eps = 0.01 on the solve's
+   real grid, through the real-axis gate (``real_axis_check``: at the
+   points where the f64 chain has converged, REAL_BARS; over the grid,
+   B4's distance and the f64 chain's own spread between 150 and 200 steps
+   printed); (b) bhz5-replica, ``models.bhz_2d.run_dmft``
    (norb = 2, nspin = 2, nbath = 5, a replica bath over the 4 symmetries
    of the BHZ hloc, nk = 20) in the default configuration, one loop, its
    scan restricted by the sector hint to the 18 sectors around the ground
@@ -162,7 +170,9 @@ nonzero without a result line):
    total), every chi chain through B4; orbital 0's and the total channel
    of each kind against the same start vectors through the f64 Lanczos
    scan over the f64-exact band apply: chi(iv_n), n < 64, within 2e-5 x
-   max|chi| (B4's GF contract), tau and the real axis printed; beta times
+   max|chi| (B4's GF contract), and the real axis through the real-axis
+   gates (phase 9(a)) against f64 chains of 200 and 150 steps, tau
+   printed; beta times
    the lowest Ritz value's distance to E of the whole n|psi> chain, by B4
    and by f64, printed (the dE = 0 pole, which the solve stores exactly,
    against the iv_0 cut of 1e-3); the three orbitals' chi_aa equal to
@@ -229,10 +239,27 @@ nonzero without a result line):
    the one-rank solve (1e-9). Each part's seconds, ms an apply and
    collective ms (rows_to_cols + cols_to_rows, or the row all-gather) are
    printed; both ranks' results identical.
+16. bethe11-finite-t: phase 5's ``run_dmft`` in the default configuration
+   at finite T (beta = 100, the repo's inputED.conf; ten states, two a
+   sector, the spin susceptibility), two loops, each loop's scan restricted
+   by the sector hint to the 9 sectors around (6,6) (``P16_HINT``; set to
+   () by import, all of them): loop 1's k = 2 lowest (6,6) energies against
+   host ARPACK at k = 2 (phase 3's oracle; 1e-10); every chain kernel
+   launched and every chain seed at its eta_target; each loop's weights
+   summing to Z (1e-12), its thermal G(iw) and chi_spin(iv_n), n < 64,
+   within B4's contract (2e-5 x max|f|) of the f64 chains from the same
+   states and start vectors, and G(w), Sigma(w) and chi_spin(w) through the
+   real-axis gate (phase 9(a)); loop 2's starting neigen_sector and
+   lanc_nstates_total, the states it solved each sector for and its list's
+   capacity equal to ed_post_diag's rule (``post_diag_rule``) applied to
+   loop 1's list; each loop's diag, gf, chi and fit seconds; B4's launches
+   and its largest batch (two chains, which phase 2s times at (7,6)).
 
 The chain kernels' launches and steps of the kernel line are those of
-phases 4, 5, 9, 10, 11, 13 and 14. Each phase's seconds (and the waits on
-the host oracles) are printed, a line each, before the kernel table.
+phases 4, 5, 9, 10, 11, 13, 14 and 16. Each phase's seconds (and the waits on
+the host oracles) are printed, a line each, before the kernel table, with
+the seconds and calls of the f64 polish (``ops.lanczos.polish_counts``)
+in it.
 
 The line before the last is the kernel table as JSON. Each kernel's bound
 is the larger of its FP32 operations over 67 TFLOP/s and its bytes, each
@@ -244,7 +271,7 @@ tensor-core peak (three passes, E3's 1pass one over the same bytes; the
 rest FP32), B1, B4, B5 and E1 their six passes there.
 A chain kernel's
 ``launches`` are chain launches and its ``steps`` the steps they ran
-(phases 4, 5, 9, 10, 11, 13 and 14 for B2-B4); its ``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
+(phases 4, 5, 9, 10, 11, 13, 14 and 16 for B2-B4); its ``ms`` is per step. The last line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import contextlib
@@ -317,14 +344,25 @@ def say(*a):
     print(*a, flush=True)
 
 
+# seconds and calls of the f64 polish (ops.lanczos.polish_counts) by phase:
+# the share of the k = 2 sectors' polish in a phase's seconds (ROADMAP C9)
+PHASE_POLISH = {}
+
+
 @contextlib.contextmanager
 def timed(name):
-    """Add the seconds of the block to PHASE_S[name]."""
+    """Add the seconds of the block to PHASE_S[name], and the f64 polish's
+    seconds and calls in it to PHASE_POLISH[name]."""
+    from dmft_lanc_ed_tpu_torch.ops.lanczos import polish_counts
     t0 = time.perf_counter()
+    p0 = dict(polish_counts)
     try:
         yield
     finally:
         PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
+        s_, c_ = PHASE_POLISH.get(name, (0.0, 0))
+        PHASE_POLISH[name] = (s_ + polish_counts["s"] - p0["s"],
+                              c_ + polish_counts["calls"] - p0["calls"])
 
 
 def cuda_ms(fn, reps=1):
@@ -520,12 +558,13 @@ def sector_854k(sqn=(HALF, HALF)):
     return _SECTORS[sqn]
 
 
-def host_ground_state(h, sec, label=""):
+def host_ground_state(h, sec, label="", k=1):
     """Host ARPACK ground state of the assembled CSR (bench.py's oracle),
     every sector term in it: the hops and the diagonal, the Jx/Jp tensor
     products sum_t B_t (x) A_t, and with phonons w0 n_ph (x) 1 and
     X_ph (x) E_eph, as scipy.sparse Kronecker products over the sector's
-    (phonon, dw, up) index."""
+    (phonon, dw, up) index. Returns (E0, its vector, the k lowest
+    energies)."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spl
 
@@ -557,10 +596,13 @@ def host_ground_state(h, sec, label=""):
                  + sp.kron(sp.csr_matrix(np.asarray(h.eph_x, np.float64)),
                            sp.diags(np.asarray(h.eph_el,
                                                np.float64).ravel())))
-    w, v = spl.eigsh(hfull.tocsr(), k=1, which="SA", tol=1e-13)
-    say(f"host ARPACK{label}: E0 = {w[0]:+.12f} "
-        f"({time.perf_counter() - t0:.1f} s)")
-    return float(w[0]), v[:, 0]
+    w, v = spl.eigsh(hfull.tocsr(), k=k, which="SA", tol=1e-13)
+    order = np.argsort(w)
+    w, v = w[order], v[:, order]
+    say(f"host ARPACK{label}: E0 = {w[0]:+.12f}"
+        + (f", the {k} lowest {[f'{x:+.12f}' for x in w]}" if k > 1 else "")
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return float(w[0]), v[:, 0], w
 
 
 def _tridiag_eigs(al, be):
@@ -924,7 +966,10 @@ def phase2s():
             f"{ms1[0]:.4f} ms, B1b {ms1[1]:.4f} ms a call (bound "
             f"{b1[0]:.4f} ms, {b1[1]}); {b5_text}")
     m = GF_STEPS
-    for sqn, nb in [(q, 1) for q in GF_SHAPES] + [((HALF, HALF), 4),
+    # two chains at (7,6): the largest batch of phase 16's finite-T loops
+    # (two states of one sector send their c+ chains to one target)
+    for sqn, nb in [(q, 1) for q in GF_SHAPES] + [((HALF + 1, HALF), 2),
+                                                  ((HALF, HALF), 4),
                                                   ((HALF, HALF), 7)]:
         op = sector_854k(sqn)[3]
         vb = starts(op, nb)
@@ -1057,16 +1102,26 @@ def sector_hint(module, hints):
     """Every EDSolver that `module` builds starts with the sector hint
     `hints` (the restriction that a restart or an earlier loop sets under
     ``ed_sectors``, shift ``cfg.ed_sectors_shift``): the first loop of its
-    driver scans the sectors around `hints` alone."""
+    driver scans the sectors around `hints` alone. Yields the list of its
+    solves, each (the neigen_sector and lanc_nstates_total it started
+    from, its SolveResult, the packed bath it took, the solver)."""
     base = module.EDSolver
+    solves = []
 
     class Hinted(base):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             self.diag_state.sector_hint = list(hints)
+
+        def solve(self, bath):
+            ctl = self.diag_state
+            start = (dict(ctl.neigen_sector), ctl.lanc_nstates_total)
+            res = super().solve(bath)
+            solves.append((start, res, np.asarray(bath).copy(), self))
+            return res
     module.EDSolver = Hinted
     try:
-        yield
+        yield solves
     finally:
         module.EDSolver = base
 
@@ -1477,11 +1532,9 @@ def release_ranks(go, parts):
     os.replace(go + ".tmp", go)
 
 
-def sharded_ranks(go, pending, parts):
-    """Release the ranks for the phases in `parts` (7, 15) and wait for
-    them; each phase's outputs, rank by rank."""
-    t0 = time.perf_counter()
-    release_ranks(go, parts)
+def sharded_ranks(pending, parts, t0):
+    """Wait for the ranks released at `t0` for the phases in `parts` (7,
+    15); each phase's outputs, rank by rank."""
     out = pending.result()
     say(f"phases {' and '.join(sorted(parts, key=int))}: {NSHARD} ranks "
         f"(spawned at the start), {time.perf_counter() - t0:.1f} s from "
@@ -1623,6 +1676,128 @@ def _chain_counts():
             dict(bc.seed_counts), list(bc.chains_per_launch["gf_tridiag"]))
 
 
+# the real axis at eps = 0.01 of the B4 route against the f64 chain from
+# the same states and start vectors (ROADMAP C13). A chain with f32
+# products places each converged pole within ~1e-7 x |E| of its f64
+# position, which moves G(w) by max|G| x dp / eps next to the pole, and
+# Sigma = G0^-1 - G^-1 by dG / |G|^2 where |G| is small. Where the chain
+# has not converged (the interior of an 854k-state sector's spectrum after
+# 200 steps), neither chain is G: the f64 chain itself moves by up to 1.15
+# x max|G| between 150 and 200 steps there, and the two chains, parted
+# once orthogonality is lost, carry other unconverged poles. So the real
+# axis is gated where the f64 chain has converged (its 150- and 200-step
+# values within REAL_CONVERGED of max|f|, at least an eighth of the grid):
+# B4 within REAL_BARS of max|f| of the f64 chain there. Over the whole
+# grid B4's distance and the f64 chain's own spread are printed, not gated:
+# where the f64 chain has not converged it is no reference. Measured on
+# the H100 (PERF.md section 2): at the converged points G 1.6e-3 to
+# 4.2e-3, Sigma 7.4e-5 to 1.1e-2, chi 7.3e-6 to 2.2e-3. The bars leave
+# about 2x.
+REAL_CONVERGED = 1e-3
+REAL_BARS = {"G": 1e-2, "Sigma": 2.5e-2, "chi": 5e-3}
+
+
+def f64_reference(solver, packed, state_list, kinds=(), steps=None):
+    """The GF (GFData) and the susceptibilities `kinds` ("spin", "dens")
+    of `state_list` from the same states and start vectors as the
+    solve's, every chain through the f64 Lanczos scan over its target's
+    f64-exact apply (no B4), `steps` steps (the solve's lanc_ngfiter by
+    default): {"gf": GFData, kind: ChiSet}."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch import chi as pchi
+    from dmft_lanc_ed_tpu_torch import gf as pgf
+    from dmft_lanc_ed_tpu_torch.ops.factory import exact_apply
+
+    class F64(pgf.HCache):
+        def _build(self, sec):
+            op, _ = super()._build(sec)
+            return op, exact_apply(op)
+    cfg = solver.cfg.replace(ed_gf_chain_min_dim=1 << 62,
+                             lanc_ngfiter=steps or solver.cfg.lanc_ngfiter)
+    nsym = None if solver.h_basis is None else solver.h_basis.shape[0]
+    cache = F64(cfg, solver.table, solver.hloc,
+                pt.unpack_bath(cfg, packed, nsym=nsym), device=DEVICE,
+                h_basis=solver.h_basis)
+    out = {"gf": pgf.build_gf_normal(cfg, solver.table, cache, state_list)}
+    for kind in kinds:
+        out[kind] = getattr(pchi, f"build_chi_{kind}")(
+            cfg, solver.table, cache, state_list)
+    return out
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def real_axis_check(name, got, want, want_short, bar):
+    """Whether B4's values `got` on the real grid (the last axis) are
+    within `bar` of the f64 chain's `want` where that chain has converged
+    against its shorter chain's `want_short`, relative to max|want|
+    (module comment at REAL_BARS); prints that distance, the converged
+    points, and B4's distance and the f64 chain's spread over the grid."""
+    axes = tuple(range(np.ndim(want) - 1))
+    scale = float(np.abs(want).max())
+    d = np.abs(got - want).max(axis=axes) / scale
+    spread = np.abs(want_short - want).max(axis=axes) / scale
+    conv = spread <= REAL_CONVERGED
+    d_conv = float(d[conv].max()) if conv.any() else 0.0
+    ok = conv.sum() >= len(conv) // 8 and d_conv <= bar
+    say(f"    {name}(w): {int(conv.sum())}/{len(conv)} points converged, "
+        f"B4 there {d_conv:.3e} (gate {bar:g}); over the grid "
+        f"{float(d.max()):.3e}, the f64 chain's own 150 vs 200 steps "
+        f"{float(spread.max()):.3e} (printed)")
+    return ok
+
+
+def real_axis_gates(label, solver, packed, res, kinds=()):
+    """The solve's G(iw) within B4's contract (2e-5 x max|G|) and its
+    G(w) and Sigma(w) through real_axis_check, against f64_reference's
+    chains of the solve's length and of three quarters of it; with
+    `kinds`, the total channel of each kind too: chi(iv_n), n < P11_NIV,
+    at B4's contract and chi(w) through real_axis_check. Returns the two
+    references."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.gf import build_sigma
+    from dmft_lanc_ed_tpu_torch.solver import (bosonic_grid, matsubara_grid,
+                                               real_grid)
+    cfg = solver.cfg
+    t0 = time.perf_counter()
+    refs = [f64_reference(solver, packed, res.state_list, kinds, steps)
+            for steps in (None, 3 * cfg.lanc_ngfiter // 4)]
+    nsym = None if solver.h_basis is None else solver.h_basis.shape[0]
+    bath = pt.unpack_bath(cfg, packed, nsym=nsym)
+    zr, wr = real_grid(cfg) + 1j * cfg.eps, real_grid(cfg)
+    g_iw = refs[0]["gf"].evaluate(cfg, 1j * matsubara_grid(cfg))
+    d_iw = {"G(iw)": (_rel(res.g_mats, g_iw), 2e-5)}
+    real = [build_sigma(cfg, solver.hloc, bath, r["gf"], zr, solver.h_basis)
+            for r in refs]
+    vm = bosonic_grid(cfg)
+    for kind in kinds:
+        a, b = getattr(res, f"chi_{kind}")[(-1, -1)], refs[0][kind][(-1, -1)]
+        iv_a, iv_b = a.matsubara(cfg.beta, vm), b.matsubara(cfg.beta, vm)
+        d_iw[f"chi_{kind}(iv)"] = (float(np.abs(iv_a - iv_b)[:P11_NIV].max()
+                                         / np.abs(iv_b).max()), P11_CHI_TOL)
+    say(f"  {label} vs the f64 chains from the same states "
+        f"({2 * (1 + len(kinds))} f64 builds in "
+        f"{time.perf_counter() - t0:.2f} s; of max|f|; eps = {cfg.eps:g}, "
+        f"{len(wr)} real points): " + ", ".join(
+            f"{k} {v:.3e} (gate {b:g})" for k, (v, b) in d_iw.items()))
+    ok = all(v <= b for v, b in d_iw.values())
+    ok &= real_axis_check("G", res.g_real, real[0][1], real[1][1],
+                          REAL_BARS["G"])
+    ok &= real_axis_check("Sigma", res.sigma_real, real[0][0], real[1][0],
+                          REAL_BARS["Sigma"])
+    for kind in kinds:
+        w = [r[kind][(-1, -1)].realaxis(cfg.beta, wr, cfg.eps) for r in refs]
+        ok &= real_axis_check(
+            f"chi_{kind}", getattr(res, f"chi_{kind}")[(-1, -1)].realaxis(
+                cfg.beta, wr, cfg.eps), w[0], w[1], REAL_BARS["chi"])
+    if not ok:
+        raise AssertionError(f"{label}: a gate against the f64 chains "
+                             "fails")
+    return refs
+
+
 def phase9a(e_ref):
     """hybrid10-854k: one restricted solve, gated against host ARPACK,
     then its mixed chain against the true-f32 plain chain."""
@@ -1682,6 +1857,7 @@ def phase9a(e_ref):
     if not d_f <= 2e-5:
         raise AssertionError("B4 on the mixed chain misses the f32 GF "
                              "contract")
+    real_axis_gates("hybrid10-854k", solver, packed, res)
     return counts, steps, dt
 
 
@@ -1908,29 +2084,6 @@ def _p11_model():
                        ed_sectors=True, ed_sectors_shift=0), hloc
 
 
-def _chi_f64(cfg, op, states, table, channels):
-    """The chi channels `channels` [(kind, key)] of the state list `states`
-    from the same
-    start vectors as the solve's, through the f64 Lanczos scan over the
-    f64-exact band apply: {(kind, key): ChiPoles}."""
-    from dmft_lanc_ed_tpu_torch import chi as pchi
-    from dmft_lanc_ed_tpu_torch.ops.blocksparse import matvec_bs_exact_flat
-    batcher = pchi._ChiBatcher(cfg.replace(ed_gf_chain_min_dim=1 << 62),
-                               lambda sqn: (op, matvec_bs_exact_flat))
-    ops = {"spin": pchi._sz_op(cfg), "dens": pchi._n_op(cfg)}
-    out = {}
-    for therm, st in pchi._therm_states(cfg, states):
-        sec = table.sector(st.qn)
-        for kind, key in channels:
-            orbs = range(cfg.norb) if key == (-1, -1) else (key[0],)
-            d = sum(ops[kind](sec, a) for a in orbs)
-            batcher.add(st.qn, pchi._diag_op_excite(sec, st.vec, d), st.vec,
-                        st.e, therm, out.setdefault((kind, key),
-                                                    pchi.ChiPoles()))
-    batcher.run()
-    return out
-
-
 def _lowest_ritz_beta_de(cfg, op, st, table, m):
     """beta * (lowest Ritz value - E_psi) of the WHOLE start vector n|psi>
     (orbital 0 and the total, no exact pole taken out), from B4 and from
@@ -2001,37 +2154,38 @@ def phase11(oracle):
                              f"7k, 7k for k = {k}")
     if not (routing["spin"] == routing["dens"] == (7 * k, 0)):
         raise AssertionError(f"a chi chain missed B4: {routing}")
-    # the f64 chain from the same start vectors
+    # the f64 chains from the same start vectors: the GF and the total
+    # channel of each kind through real_axis_gates, orbital 0's here
     table = solver.table
     op, _ = HCache(cfg, table, hloc, pt.unpack_bath(cfg, packed),
                    device=DEVICE)(pt.qn(HALF, HALF))
-    channels = [(kind, key) for kind in ("spin", "dens")
-                for key in ((0, 0), (-1, -1))]
-    t1 = time.perf_counter()
-    ref = _chi_f64(cfg, op, res.state_list, table, channels)
-    t_f64 = time.perf_counter() - t1
+    refs = real_axis_gates("kanamori3-chi-854k", solver, packed, res,
+                           ("spin", "dens"))
     vm, tau, wr = bosonic_grid(cfg), tau_grid(cfg), real_grid(cfg)
-    worst = 0.0
-    for kind, key in channels:
-        a = getattr(res, f"chi_{kind}")[key]
-        b = ref[(kind, key)]
+    worst, real_ok = 0.0, True
+    for kind in ("spin", "dens"):
+        a = getattr(res, f"chi_{kind}")[(0, 0)]
+        b = refs[0][kind][(0, 0)]
         iv_a, iv_b = a.matsubara(cfg.beta, vm), b.matsubara(cfg.beta, vm)
         d_iv = float(np.abs(iv_a - iv_b)[:P11_NIV].max())
         scale = float(np.abs(iv_b).max())
         d_tau = float(np.abs(a.imtime(tau) - b.imtime(tau)).max())
-        d_w = float(np.abs(a.realaxis(cfg.beta, wr, cfg.eps)
-                           - b.realaxis(cfg.beta, wr, cfg.eps)).max())
         worst = max(worst, d_iv / scale)
-        say(f"  chi_{kind}{key} vs the f64 chain: max|d| iv (n < "
+        say(f"  chi_{kind}(0, 0) vs the f64 chain: max|d| iv (n < "
             f"{P11_NIV}) {d_iv:.3e} (gate {P11_CHI_TOL:g} x max|chi| = "
-            f"{P11_CHI_TOL * scale:.3e}), tau {d_tau:.3e}, w {d_w:.3e} "
-            f"(printed, not gated); chi(iv_0) {iv_a[0]:+.9f}")
-    say(f"  the f64 chains: {len(channels) * k} chains of "
-        f"{min(table.dim(pt.qn(HALF, HALF)), cfg.lanc_ngfiter)} steps in "
-        f"{t_f64:.2f} s")
+            f"{P11_CHI_TOL * scale:.3e}), tau {d_tau:.3e}; chi(iv_0) "
+            f"{iv_a[0]:+.9f}")
+        real_ok &= real_axis_check(
+            f"chi_{kind}(0, 0)", a.realaxis(cfg.beta, wr, cfg.eps),
+            b.realaxis(cfg.beta, wr, cfg.eps),
+            refs[1][kind][(0, 0)].realaxis(cfg.beta, wr, cfg.eps),
+            REAL_BARS["chi"])
     if not worst <= P11_CHI_TOL:
         raise AssertionError("chi misses B4's contract against the f64 "
                              "chain")
+    if not real_ok:
+        raise AssertionError("chi(w) misses its real-axis gates against "
+                             "the f64 chains")
     bde = _lowest_ritz_beta_de(cfg, op, states[0], table,
                                min(table.dim(pt.qn(HALF, HALF)),
                                    cfg.lanc_ngfiter))
@@ -2781,10 +2935,116 @@ def phase15(e0, ref_y, oracles, out):
                              "differ")
 
 
+# phase 16: finite-T Lanczos on the band-sparse route, bethe11-finite-t:
+# phase 5's model and configuration at finite T, beta = 100 (the repo's
+# inputED.conf), ten states, two a sector, the spin susceptibility, two
+# loops, each loop's scan restricted by the sector hint to the 9 sectors
+# around (6,6) (627,264 to 853,776 states each)
+P16_HINT = ((HALF, HALF),)
+P16_KW = dict(ed_finite_temp=True, lanc_nstates_total=10, chispin_flag=True)
+P16_K = 2                 # (6,6)'s states in loop 1: lanc_nstates_sector
+
+
+def post_diag_rule(cfg, state_list, total):
+    """ed_post_diag's rule (ED_DIAG.f90:471-605), restated: each sector of
+    the list is solved next for one state more than the list holds of it;
+    a full list whose Boltzmann tail at its top is above the cutoff grows
+    by lanc_nstates_step, and one whose tail is below it, if it holds more
+    than two steps, is cut to the states within -ln(cutoff) / beta of the
+    ground state. -> (neigen of the list's sectors, lanc_nstates_total)."""
+    counts = {}
+    for st in state_list.states:
+        counts[st.qn] = counts.get(st.qn, 0) + 1
+    e0, size = state_list.emin, state_list.size
+    tail = np.exp(-cfg.beta * (state_list.emax - e0))
+    if tail > cfg.cutoff and size >= total:
+        total += cfg.lanc_nstates_step
+    elif tail < cfg.cutoff and size > 2 * cfg.lanc_nstates_step:
+        keep = sum(st.e <= e0 - np.log(cfg.cutoff) / cfg.beta
+                   for st in state_list.states)
+        if keep < size:
+            total = max(keep, 1)
+    return {q: c + 1 for q, c in counts.items()}, total
+
+
+def phase16(arpack):
+    """bethe11-finite-t: run_dmft at finite T in the default configuration,
+    two loops over the sectors around (6,6); loop 1's k lowest (6,6)
+    energies against host ARPACK (`arpack`, phase 3's oracle at k =
+    P16_K), each loop's thermal G, Sigma and chi against the f64 chains
+    from the same states and start vectors, the weights, and loop 2's
+    control state against ed_post_diag's rule."""
+    import dmft_lanc_ed_tpu_torch as pt
+    from dmft_lanc_ed_tpu_torch.models import hm_bethe
+    from dmft_lanc_ed_tpu_torch.ops import bs_chain as bc
+    t_all = time.perf_counter()
+    cfg = _dmft_cfg(2, **P16_KW)
+    if cfg.ed_backend != "auto" or not cfg.ed_batch_sectors:
+        raise AssertionError("phase 16 must run the default configuration")
+    e0, _, e_k = arpack
+    hints = [pt.qn(*q) for q in P16_HINT]
+    scan = (f"each loop's scan restricted to the 9 sectors around "
+            f"{P16_HINT[0]}" if hints else "the full scan in both loops")
+    with sector_hint(hm_bethe, hints) as solves:
+        res, counts, dt = _run_loop(
+            f"phase 16 bethe11-finite-t (beta {cfg.beta:g}, "
+            f"{cfg.lanc_nstates_total} states, {scan})", cfg, e0)
+    chains = list(bc.chains_per_launch["gf_tridiag"])
+    if len(solves) != 2:
+        raise AssertionError(f"{len(solves)} solves, not two loops")
+    for ent, (_, r, _, _) in zip(res.history, solves):
+        sl = r.state_list
+        say(f"  loop {ent['iloop']}: chi {ent['timings']['chi']:.2f} s "
+            f"({CARD}); {sl.size} states in "
+            f"{len(sl.sectors_contributing())} sectors, "
+            f"{len(ent['diag_log'])} sectors scanned, E - E0 "
+            f"{[round(x.e - sl.emin, 6) for x in sl.states]}, clean cut "
+            f"{sl.clean_cut}")
+    # loop 1's k lowest (6,6) energies against host ARPACK at the same k
+    r1 = solves[0][1]
+    e66 = next(np.asarray(e) for q, e, _ in r1.state_list.diag_log
+               if q == pt.qn(HALF, HALF))
+    d_k = np.abs(e66 - e_k[:len(e66)])
+    say(f"  loop 1's {len(e66)} lowest (6,6) energies "
+        f"{[f'{x:+.12f}' for x in e66]}, |dE| vs host ARPACK "
+        f"{[f'{x:.2e}' for x in d_k]} (gate 1e-10)")
+    if not (len(e66) == P16_K and np.all(d_k <= 1e-10)):
+        raise AssertionError("the (6,6) energies miss host ARPACK")
+    # each loop: weights, and G, Sigma, chi against the f64 chains
+    for i, (_, r, packed, solver) in enumerate(solves):
+        w, zeta = r.state_list.boltzmann_weights(cfg.beta, True)
+        d_z = abs(float(w.sum()) / zeta - 1.0)
+        say(f"  loop {i + 1}: |sum w / Z - 1| {d_z:.2e} (gate 1e-12), Z "
+            f"{zeta:.12f}, gf routing {r.gf.routing}")
+        if not d_z <= 1e-12:
+            raise AssertionError("the Boltzmann weights do not sum to Z")
+        real_axis_gates(f"loop {i + 1}", solver, packed, r, ("spin",))
+    # loop 2 started from ed_post_diag's rule applied to loop 1's list
+    want_n, want_t = post_diag_rule(cfg, r1.state_list,
+                                    cfg.lanc_nstates_total)
+    (n2, t2), r2 = solves[1][0], solves[1][1]
+    used = {q: len(e) for q, e, _ in r2.state_list.diag_log}
+    table = solves[1][3].table
+    want_used = {q: min(table.dim(q), want_n.get(q, cfg.lanc_nstates_sector))
+                 for q in used}
+    say(f"  loop 2 started from neigen_sector {sorted(n2.items())}, "
+        f"lanc_nstates_total {t2}; the rule from loop 1's list: "
+        f"{sorted(want_n.items())}, {want_t}")
+    if not (n2 == want_n and t2 == want_t and used == want_used
+            and r2.state_list.max_size == want_t):
+        raise AssertionError("loop 2's neigen_sector or lanc_nstates_total "
+                             "do not follow ed_post_diag's rule")
+    say(f"  B4: {len(chains)} launches, at most {max(chains)} chains a "
+        f"launch (phase 2s times two at {(HALF + 1, HALF)})")
+    say(f"phase 16: {time.perf_counter() - t_all:.1f} s ({CARD})")
+    return counts[0], counts[1], dt
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12,13,14,15")
+                    default="0,1,2,2s,3,3b,4,5,6,7,8,9,10,11,12,13,14,15,"
+                            "16")
     ap.add_argument("--ghost-tol", type=float, default=None)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2826,11 +3086,14 @@ def main():
             with timed("oracle wait"):
                 return pending.get()
         on_854k = phases & {"2", "2s", "3", "3b", "6", "7", "8", "14", "15"}
-        if on_854k:
+        if on_854k or "16" in phases:
             with timed("854k build"):
                 cfg, sec, h, op = sector_854k()
-            if phases & {"2", "3", "3b", "7", "14", "15"}:
-                arpack = oracle.apply_async(host_ground_state, (h, sec))
+            if phases & {"2", "3", "3b", "7", "14", "15", "16"}:
+                # phase 16 gates (6,6)'s P16_K lowest energies
+                arpack = oracle.apply_async(
+                    host_ground_state,
+                    (h, sec, "", P16_K if "16" in phases else 1))
         if "9" in phases:
             p9_oracle = oracle.apply_async(phase9_oracles)
         if phases & {"10", "11"}:
@@ -2874,7 +3137,7 @@ def main():
                     tot[k] = tot.get(k, 0) + n
         if on_854k:
             if arpack is not None:
-                e0, v_gs = result(arpack)
+                e0, v_gs, _ = result(arpack)
             if "3" in phases:
                 phase3_gate(e_gs, t3, e0)
             if "2" in phases:
@@ -2898,6 +3161,13 @@ def main():
                     p15_ref = phase15_ref(op)
             del op
             _SECTORS.clear()
+        # the ranks of phases 7 and 15 run their work beside phases 9-13
+        # and 16 (the kernels' timings of phases 2, 2s, 6, 8 and 14 are
+        # taken before)
+        parts = phases & {"7", "15"}
+        if parts:
+            t_ranks = time.perf_counter()
+            release_ranks(go, parts)
         if "9" in phases:
             p9 = result(p9_oracle)
             with timed("9"):
@@ -2932,10 +3202,16 @@ def main():
             p15 = result(p15_oracle)
             if "holstein7" not in p15:
                 p15["holstein7"] = result(p12_oracle)["holstein7"]
+        if "16" in phases:
+            with timed("16"):
+                c16, s16, _ = phase16(result(arpack))
+            for tot, add in ((counts, c16), (steps, s16)):
+                for k, n in add.items():
+                    tot[k] = tot.get(k, 0) + n
         ranks = {}
-        if phases & {"7", "15"}:
+        if parts:
             with timed("7, 15: ranks"):
-                ranks = sharded_ranks(go, pending, phases & {"7", "15"})
+                ranks = sharded_ranks(pending, parts, t_ranks)
         if "7" in phases:
             with timed("7"):
                 counts.update(phase7(e0, e_gs, ranks["7"]))
@@ -2958,7 +3234,10 @@ def main():
         print("chip_smoke: the JAX package was imported", file=sys.stderr)
         return 1
     for name, sec_n in PHASE_S.items():
-        say(f"seconds, phase {name}: {sec_n:.1f} ({CARD})")
+        pol_s, pol_n = PHASE_POLISH.get(name, (0.0, 0))
+        say(f"seconds, phase {name}: {sec_n:.1f} ({CARD})"
+            + (f"; f64 polish {pol_s:.1f} s in {pol_n} calls" if pol_n
+               else ""))
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [

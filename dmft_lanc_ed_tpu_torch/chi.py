@@ -34,7 +34,10 @@ whose products carry f32 error (B4, the mixed dense scan) puts that Ritz
 value off E_psi (B4 at 853,776 states: +1.3e-7 and -2.7e-6): above the
 1e-8 reverse-ordering tolerance of :func:`_store_poles`, which then counts
 <n_a>^2 twice in chi_dens(tau), and across the 1e-3/beta iv_0 cut at low
-enough temperature.
+enough temperature. For the same reason the reverse-ordering test of such
+a chain takes a Ritz value within :data:`_F32_RITZ_RTOL` of a listed
+energy of the chain's sector for that listed state (the JAX package
+applies its 1e-8 tolerance alone to every chain).
 
 Full-ED twins (ed_diag_type="full"): :class:`PairChiPoles` and the
 ``full_build_*`` functions take the Lehmann double sum over the complete
@@ -53,6 +56,7 @@ from .config import EDConfig
 from .eigenspace import StateList
 from .gf import HCache
 from .observables import _x_matrix
+from .ops.factory import apply_is_exact
 from .ops.lanczos import lanczos_tridiag_batched, tridiag_eigh
 from .sectors import SectorTable, occupations
 from .utils.observability import kernel_stats
@@ -148,11 +152,30 @@ def _diag_op_excite(sec, vec, diag_op) -> np.ndarray:
     return (v * np.asarray(diag_op)[None]).reshape(-1)
 
 
-def _poles(cfg: EDConfig, strength, theta, state_e, therm):
+# Where a Ritz value of a chain with f32 products (B4, the mixed dense
+# scan) may sit off its eigenvalue, relative to max(1, |E|): ~1e-7 x |E|
+# measured (nbath = 4, beta = 100: 4e-7 at |E| = 5.1 through B4's plain
+# version, 1.8e-6 through the JAX package's B4 in interpret mode). Such a
+# Ritz copy of a listed state can land above emax + 1e-8: the
+# reverse-ordering test of :func:`_poles` would then take it for a state
+# above the list and count its pair twice, from its own chain and in
+# reverse, which moved chi(w) at eps = 0.01 by 10 % of max|chi| (ROADMAP
+# C13). Only copies of the listed energies of the chain's own sector are
+# matched at this tolerance: a level outside the list that lies just above
+# emax keeps its reverse pair (a tolerance on every Ritz value would drop
+# that of a level 1e-6 above emax, 5.6e-2 of max|chi| in
+# tests/test_torch_real_axis.py).
+_F32_RITZ_RTOL = 1e-6
+
+
+def _poles(cfg: EDConfig, strength, theta, state_e, therm, listed=None):
     """(peso, pth, de, rev) of Ritz poles theta with strengths P.
 
     ``therm`` = (e0, emax, zeta, wi): global ground-state energy, top of the
-    state list, partition function, and this state's Boltzmann weight."""
+    state list, partition function, and this state's Boltzmann weight.
+    ``listed``: for a chain with f32 products, the state list's energies in
+    the chain's sector; a Ritz value within :data:`_F32_RITZ_RTOL` of one
+    of them is that listed state."""
     e0, emax, zeta, wi = therm
     de = theta - state_e
     eth = np.maximum(theta - e0, 0.0)                 # shifted pole energy
@@ -161,8 +184,12 @@ def _poles(cfg: EDConfig, strength, theta, state_e, therm):
     # reverse ordering included only when the partner state cannot be in
     # the state list (energy above the list's coverage)
     tol = 1e-8 * max(1.0, abs(emax - e0))
-    rev = (theta > emax + tol).astype(np.float64)
-    return peso, pth, de, rev
+    rev = theta > emax + tol
+    if listed is not None and len(listed):
+        near = (np.abs(theta[:, None] - listed[None, :])
+                <= _F32_RITZ_RTOL * np.maximum(1.0, np.abs(listed)))
+        rev &= ~near.any(axis=1)
+    return peso, pth, de, rev.astype(np.float64)
 
 
 def _store(chi: ChiPoles, peso, pth, de, rev) -> None:
@@ -171,12 +198,12 @@ def _store(chi: ChiPoles, peso, pth, de, rev) -> None:
 
 
 def _store_poles(cfg, alphas, betas, norm2, state_e, therm,
-                 chi: ChiPoles) -> None:
+                 chi: ChiPoles, listed=None) -> None:
     """Ritz-decompose one tridiagonal and store one-sided pole data."""
     theta, s = tridiag_eigh(alphas, betas)
     chi.beta = cfg.beta
     _store(chi, *_poles(cfg, norm2 * (s[0, :] ** 2), theta, state_e,
-                        therm))
+                        therm, listed))
 
 
 class _ChiBatcher:
@@ -184,9 +211,13 @@ class _ChiBatcher:
     sector's together: at finite T every retained state spawns
     norb(norb+3)/2 channels in its own sector, all sharing the operator."""
 
-    def __init__(self, cfg: EDConfig, hcache: HCache, max_bytes=1 << 27):
+    def __init__(self, cfg: EDConfig, hcache: HCache, state_list: StateList,
+                 max_bytes=1 << 27):
         self.cfg = cfg
         self.hcache = hcache
+        self.listed: Dict = {}        # sector -> the list's energies there
+        for st in state_list.states:
+            self.listed.setdefault(st.qn, []).append(st.e)
         self.groups: Dict = {}
         self.max_bytes = max_bytes
         self.routing = (0, 0)
@@ -209,9 +240,10 @@ class _ChiBatcher:
         self.groups.setdefault(sqn, []).append(
             (vv / np.sqrt(norm2), norm2, state_e, therm, chi))
 
-    def _accumulate(self, chunk, a_np, b_np) -> None:
+    def _accumulate(self, sqn, chunk, a_np, b_np, f32: bool) -> None:
+        listed = np.asarray(self.listed.get(sqn, ())) if f32 else None
         for (_, norm2, state_e, therm, chi), a, b in zip(chunk, a_np, b_np):
-            _store_poles(self.cfg, a, b, norm2, state_e, therm, chi)
+            _store_poles(self.cfg, a, b, norm2, state_e, therm, chi, listed)
 
     def run(self) -> None:
         from .ops.blocksparse import BlockSparseSectorOp
@@ -229,7 +261,7 @@ class _ChiBatcher:
                 n_chain += len(tasks)
                 kernel_stats.record(m * len(tasks), op.nnz)
                 a_b, b_b = gf_tridiag_batch(op, vs, m)
-                self._accumulate(tasks, a_b, b_b)
+                self._accumulate(sqn, tasks, a_b, b_b, f32=True)
                 continue
             bmax = max(1, self.max_bytes // max(dim * 8, 1))
             for i0 in range(0, len(tasks), bmax):
@@ -239,7 +271,8 @@ class _ChiBatcher:
                 v0 = torch.as_tensor(vs[i0:i0 + bmax], dtype=torch.float64,
                                      device=op.device)
                 a_b, b_b = lanczos_tridiag_batched(op, v0, m, op_apply)
-                self._accumulate(chunk, a_b, b_b)
+                self._accumulate(sqn, chunk, a_b, b_b,
+                                 f32=not apply_is_exact(op_apply))
         if n_chain or n_scan:
             log.info("chi batch routing: %d excitations via fused chain "
                      "kernel, %d via batched scan", n_chain, n_scan)
@@ -271,7 +304,7 @@ def _build_chi_diagop(cfg: EDConfig, table: SectorTable, hcache: HCache,
     (a,b) channels and the total (-1,-1) channel, with the reference's
     algebraic recombination chi_ab = 1/2 (chi_mix - chi_aa - chi_bb)."""
     chis: ChiSet = {}
-    batcher = _ChiBatcher(cfg, hcache)
+    batcher = _ChiBatcher(cfg, hcache, state_list)
     for therm, st in _therm_states(cfg, state_list):
         sec = table.sector(st.qn)
         ops = [op_orb(sec, a) for a in range(cfg.norb)]
@@ -349,7 +382,7 @@ def build_gf_phonon(cfg: EDConfig, table: SectorTable, hcache: HCache,
     """
     chi = ChiPoles(beta=cfg.beta)
     x = _x_matrix(cfg.dim_ph)
-    batcher = _ChiBatcher(cfg, hcache)
+    batcher = _ChiBatcher(cfg, hcache, state_list)
     for therm, st in _therm_states(cfg, state_list):
         sec = table.sector(st.qn)
         v = np.asarray(st.vec).reshape(sec.dim_ph, sec.dim_dw, sec.dim_up)

@@ -845,6 +845,63 @@ def test_kanamori_driver_on_the_band_sparse_path(cuda):
     assert abs(dense.solve(ent["bath"]).observables.egs - ent["egs"]) <= 1e-9
 
 
+def test_finite_t_solve_on_the_band_sparse_path(cuda):
+    """A finite-T solve (ten states, two a sector) of a two-orbital
+    impurity with a crystal field, nbath = 3, its (4,4) sector of 4,900
+    states band-sparse and its GF targets of 3,920 through B4: B2, B3 and
+    B4 launch, every chain seed reaches its eta_target, each Krylov
+    sector's k lowest values equal those of its dense matrix by f64 eigh
+    on the card (1e-9; the (3,3) ground state is two-fold, which a
+    single-vector f64 Lanczos solve from one random start finds once: it
+    is no reference here), and G(iw) and chi(iv) meet B4's contract (2e-5
+    x max|f|) against f64 chains from the same states and start
+    vectors."""
+    from dmft_lanc_ed_tpu_torch import chi as pchi
+    from dmft_lanc_ed_tpu_torch import gf as pgf
+    from dmft_lanc_ed_tpu_torch.ops.factory import exact_apply
+    kw = dict(norb=2, nbath=3, uloc=(2.0, 2.0), ust=1.0, jh=0.3, beta=50.0,
+              lmats=128, lreal=16, ed_finite_temp=True,
+              lanc_nstates_total=10, chispin_flag=True)
+    hloc = np.zeros((1, 1, 2, 2))
+    hloc[0, 0] = np.diag([0.2, -0.2])
+    cfg = pt.EDConfig(ed_backend="pallas", ed_batch_dim_max=4000,
+                      ed_gf_chain_min_dim=3000, **kw)
+    solver = pt.EDSolver(cfg, hloc, device=cuda)
+    packed = solver.init_bath()
+    bc.reset_launch_counts()
+    res = solver.solve(packed)
+    assert all(n > 0 for n in bc.launch_counts.values()), bc.launch_counts
+    assert bc.seed_counts["missed"] == 0 and bc.seed_counts["reached"] > 0
+    assert res.gf.routing[0] > 0
+    bath = pt.unpack_bath(cfg, packed)
+    for q, e, krylov in res.state_list.diag_log:
+        if not krylov:
+            continue
+        h = pt.build_sector_hamiltonian(cfg, solver.table.sector(q), hloc,
+                                        bath)
+        w = torch.linalg.eigvalsh(torch.as_tensor(pt.dense_hamiltonian(h),
+                                                  device=cuda))
+        np.testing.assert_allclose(e, w[:len(e)].cpu().numpy(), rtol=0,
+                                   atol=1e-9, err_msg=str(q))
+
+    class F64(pgf.HCache):
+        def _build(self, sec):
+            op, _ = super()._build(sec)
+            return op, exact_apply(op)
+    cfg64 = cfg.replace(ed_gf_chain_min_dim=1 << 62)
+    cache = F64(cfg64, solver.table, solver.hloc,
+                pt.unpack_bath(cfg, packed), device=cuda)
+    gf64 = pgf.build_gf_normal(cfg64, solver.table, cache, res.state_list)
+    g64 = gf64.evaluate(cfg, 1j * pt.matsubara_grid(cfg))
+    assert np.abs(res.g_mats - g64).max() <= 2e-5 * np.abs(g64).max()
+    chi64 = pchi.build_chi_spin(cfg64, solver.table, cache, res.state_list)
+    vm = pt.solver.bosonic_grid(cfg)
+    for key, b in chi64.items():
+        a = res.chi_spin[key].matsubara(cfg.beta, vm)
+        b = b.matsubara(cfg.beta, vm)
+        assert np.abs(a - b).max() <= 2e-5 * np.abs(b).max(), key
+
+
 def test_lattice_dryrun_two_ranks_share_the_card(cuda):
     """The two-rank lattice dryrun with both ranks on the one card (gloo,
     staged through host memory): the merged arrays identical on both ranks
