@@ -1,0 +1,6 @@
+"""The B2/B3 chain launches' least time (edbench.roofline) over their kernels' device time in the trace, per cent."""
+from edbench import readers
+
+
+def read(run):
+    return readers.roofline_pct(run, ("B2", "B3"))
