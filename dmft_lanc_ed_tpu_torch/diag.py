@@ -44,7 +44,8 @@ from .bath import Bath
 from .config import EDConfig
 from .eigenspace import EigenState, StateList
 from .hamiltonian import build_sector_hamiltonian, dense_hamiltonian
-from .ops.batched import bucket_key, lanczos_ground_state_bucket
+from .ops.batched import (bucket_counts, bucket_key,
+                          lanczos_ground_state_bucket)
 from .ops.blocksparse import (BlockSparseSectorOp, build_blocksparse_op,
                               from_padded, matvec_bs_exact_padded,
                               matvec_bs_mixed_padded, matvec_bs_padded,
@@ -61,6 +62,7 @@ from .parallel.production import (shard_sector_op, sharded_backend,
                                   sharded_ground_state, should_shard,
                                   solver_mesh)
 from .sectors import SectorQN, SectorTable
+from .utils.observability import trace
 
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
 
@@ -129,8 +131,11 @@ def _solve_batched_sectors(cfg: EDConfig, table: SectorTable, hloc, bath,
             continue                       # basis would exhaust the sector
         # host-resident build: padding and stacking stay on the host, the
         # bucket goes to the device in one copy per field
-        op = build_dense_op(cfg, table.sector(sqn), hloc, bath, "cpu",
-                            h_basis=h_basis)
+        with trace.span("ed.op_build", site="bucket", qn=sqn,
+                        backend="dense"):
+            trace.count("op_builds.bucket")
+            op = build_dense_op(cfg, table.sector(sqn), hloc, bath, "cpu",
+                                h_basis=h_basis)
         buckets.setdefault(bucket_key(op), []).append((sqn, op, neigen))
 
     results: Dict = {}
@@ -141,11 +146,14 @@ def _solve_batched_sectors(cfg: EDConfig, table: SectorTable, hloc, bath,
         # m = 48 best for its buckets (fewer restarts beat the ~m^2 CGS2)
         ncv = max(min(min_dim, max(48, cfg.lanc_ncv_factor * neigen
                                    + cfg.lanc_ncv_add)), 2 * neigen + 16)
-        sols = lanczos_ground_state_bucket(
-            [g[1] for g in group], neigen,
-            tol=_lanc_tol(cfg, resolve_precision(cfg, device) == "f64"),
-            precision=resolve_precision(cfg, device), ncv=min(ncv, min_dim),
-            device=device)
+        with trace.span("ed.bucket", sectors=len(group)) as sp:
+            restarts = bucket_counts["restarts"]
+            sols = lanczos_ground_state_bucket(
+                [g[1] for g in group], neigen,
+                tol=_lanc_tol(cfg, resolve_precision(cfg, device) == "f64"),
+                precision=resolve_precision(cfg, device),
+                ncv=min(ncv, min_dim), device=device)
+            sp["restarts"] = bucket_counts["restarts"] - restarts
         log.info("batched bucket %s: %d sectors, neigen=%d, %d solved",
                  bkey[:2], len(group), neigen,
                  sum(s is not None for s in sols))
@@ -175,18 +183,23 @@ def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
     def unpad_all(vals, vecs_p):
         """Padded Ritz vectors -> natural flat, renormalized (pad weight
         is ~0: the pad block is exactly decoupled and +PAD_SHIFT away)."""
-        vecs_p = torch.as_tensor(vecs_p, device=op.device).reshape(
-            (-1,) + pshape)
-        vn = from_padded(op, vecs_p, torch.float64).reshape(len(vecs_p), -1)
-        vn = vn / torch.linalg.vector_norm(vn, dim=1, keepdim=True)
-        return np.asarray(vals), vn.cpu().numpy()
+        with trace.span("ed.unpad"):
+            vecs_p = torch.as_tensor(vecs_p, device=op.device).reshape(
+                (-1,) + pshape)
+            vn = from_padded(op, vecs_p, torch.float64).reshape(
+                len(vecs_p), -1)
+            vn = vn / torch.linalg.vector_norm(vn, dim=1, keepdim=True)
+            if trace.on and vn.is_cuda:
+                trace.count("d2h_bytes", vn.nbytes)
+            return np.asarray(vals), vn.cpu().numpy()
 
     if use_chain is None:
         use_chain = chain_applicable(op)
     if use_chain:
-        theta0, seed_p, eta = ground_state_seed(
-            op, m_tri=96, m_cheb=min(2 * max(ncv, 64), _K_BUCKETS[-1]),
-            return_padded=True)
+        with trace.span("ed.seed"):
+            theta0, seed_p, eta = ground_state_seed(
+                op, m_tri=96, m_cheb=min(2 * max(ncv, 64), _K_BUCKETS[-1]),
+                return_padded=True)
         seed = seed_p.double()
         seed = seed / torch.linalg.vector_norm(seed)
         if neigen == 1 and eta <= 3e-3:
@@ -206,18 +219,21 @@ def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
         # the trim runs, and so applies the whole-window kernel B1b
         # (blocksparse.py:660-672); the port keeps that split: this solve
         # runs B1b, chain_step runs the trimmed B1a (bit-identical outputs)
-        v0n = np.random.default_rng(17).standard_normal(
-            (op.dim_dw, op.dim_up))
-        v0 = to_padded(op, v0n / np.linalg.norm(v0n))
-        _, evecs_p = lanczos_ground_state(
-            pop, partial(matvec_bs_padded, trim=False), pop.dim, neigen,
-            ncv=ncv, tol=max(_lanc_tol(cfg, False), 5e-5),
-            dtype=torch.float32, v0=v0, vshape=pshape)
-        seed = torch.as_tensor(evecs_p[0], device=op.device).reshape(pshape)
-    vals, vecs_p = lanczos_ground_state(
-        pop, matvec_bs_mixed_padded, pop.dim, neigen, ncv=ncv,
-        tol=_lanc_tol(cfg, False), dtype=torch.float64,
-        v0=seed, vshape=pshape, polish_apply=matvec_bs_exact_padded)
+        with trace.span("ed.seed"):
+            v0n = np.random.default_rng(17).standard_normal(
+                (op.dim_dw, op.dim_up))
+            v0 = to_padded(op, v0n / np.linalg.norm(v0n))
+            _, evecs_p = lanczos_ground_state(
+                pop, partial(matvec_bs_padded, trim=False), pop.dim, neigen,
+                ncv=ncv, tol=max(_lanc_tol(cfg, False), 5e-5),
+                dtype=torch.float32, v0=v0, vshape=pshape)
+            seed = torch.as_tensor(evecs_p[0],
+                                   device=op.device).reshape(pshape)
+    with trace.span("ed.topoff"):
+        vals, vecs_p = lanczos_ground_state(
+            pop, matvec_bs_mixed_padded, pop.dim, neigen, ncv=ncv,
+            tol=_lanc_tol(cfg, False), dtype=torch.float64,
+            v0=seed, vshape=pshape, polish_apply=matvec_bs_exact_padded)
     return unpad_all(vals, vecs_p)
 
 
@@ -230,20 +246,26 @@ def _sharded_ground_state(cfg: EDConfig, sqn, sec, hloc, bath, h_basis,
     choice logged. Same result on every rank."""
     backend = sharded_backend(cfg, mesh.device)
     if resolve_backend(cfg, device) == "pallas":
-        h = build_sector_hamiltonian(cfg, sec, hloc, bath, h_basis=h_basis)
-        why_not = blocksparse_shardable(h, mesh.size)
-        if why_not is None:
+        with trace.span("ed.op_build", site="diag", qn=sqn,
+                        backend="pallas"):
+            trace.count("op_builds.diag")
+            h = build_sector_hamiltonian(cfg, sec, hloc, bath,
+                                         h_basis=h_basis)
+            why_not = blocksparse_shardable(h, mesh.size)
+            # built on the host: each rank moves only its shard to its card
+            op = build_blocksparse_op(h, "cpu") if why_not is None else None
+        if op is not None:
             log.info("sector %s (dim %d): dw-sharded band-sparse fused solve "
                      "on %d devices", sqn, dim, mesh.size)
-            # built on the host: each rank moves only its shard to its card
-            return bs_sharded_ground_state(
-                cfg, build_blocksparse_op(h, "cpu"), mesh, neigen, ncv)
+            return bs_sharded_ground_state(cfg, op, mesh, neigen, ncv)
         log.info("sector %s (dim %d): band-sparse shard path unavailable "
                  "(%s) — sharded %s backend", sqn, dim, why_not, backend)
     else:
         log.info("sector %s (dim %d): sharded %s backend on %d ranks", sqn,
                  dim, backend, mesh.size)
-    sop = shard_sector_op(cfg, sec, hloc, bath, h_basis, mesh)
+    with trace.span("ed.op_build", site="diag", qn=sqn, backend=backend):
+        trace.count("op_builds.diag")
+        sop = shard_sector_op(cfg, sec, hloc, bath, h_basis, mesh)
     # start vector with exact-zero pad rows (the pad subspace is invariant,
     # parallel/production.pad_dense_op)
     v0 = sop.pad_flat(np.random.default_rng(17).standard_normal(dim))
@@ -282,43 +304,54 @@ def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
         sec = table.sector(sqn)
 
         lanc_solve = dim > max(cfg.lanc_dim_threshold, neigen)
-        if sqn in batch_results:
-            evals, evecs = batch_results[sqn]
-            evals, evecs = evals[:neigen], evecs[:neigen]
-        elif lanc_solve and should_shard(cfg, mesh, sec.dim_dw, dim):
-            ncv = min(dim, cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add)
-            ncv = max(ncv, 2 * neigen + 16)
-            evals, evecs = _sharded_ground_state(
-                cfg, sqn, sec, hloc, bath, h_basis, mesh, dim, neigen,
-                min(ncv, dim), device)
-        elif lanc_solve:
-            op, op_apply = make_sector_op(cfg, sec, hloc, bath, device,
-                                          h_basis=h_basis)
-            ncv = min(dim, cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add)
-            ncv = max(ncv, 2 * neigen + 16)
-            polish = None if apply_is_exact(op_apply) else exact_apply(op)
-            if cfg.lanc_method == "dvdson":
-                # Davidson with diagonal preconditioning (sp_dvdson_eigh,
-                # ED_DIAG.f90:189-204)
-                evals, evecs = davidson_ground_state(
-                    op, op_apply, dim, neigen, op_diag_flat(op),
-                    ncv=min(ncv, dim),
-                    tol=_lanc_tol(cfg, apply_is_exact(op_apply)),
-                    dtype=torch.float64, polish_apply=polish)
-            elif isinstance(op, BlockSparseSectorOp):
-                evals, evecs = _blocksparse_ground_state(
-                    cfg, op, dim, neigen, min(ncv, dim))
+        with trace.span("ed.sector", qn=sqn, dim=dim) as sp:
+            if sqn in batch_results:
+                sp["route"] = "batched"
+                evals, evecs = batch_results[sqn]
+                evals, evecs = evals[:neigen], evecs[:neigen]
+            elif lanc_solve and should_shard(cfg, mesh, sec.dim_dw, dim):
+                sp["route"] = "sharded"
+                ncv = min(dim,
+                          cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add)
+                ncv = max(ncv, 2 * neigen + 16)
+                evals, evecs = _sharded_ground_state(
+                    cfg, sqn, sec, hloc, bath, h_basis, mesh, dim, neigen,
+                    min(ncv, dim), device)
+            elif lanc_solve:
+                with trace.span("ed.op_build", site="diag", qn=sqn,
+                                backend=resolve_backend(cfg, device)):
+                    trace.count("op_builds.diag")
+                    op, op_apply = make_sector_op(cfg, sec, hloc, bath,
+                                                  device, h_basis=h_basis)
+                ncv = min(dim,
+                          cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add)
+                ncv = max(ncv, 2 * neigen + 16)
+                polish = None if apply_is_exact(op_apply) \
+                    else exact_apply(op)
+                if cfg.lanc_method == "dvdson":
+                    # Davidson with diagonal preconditioning
+                    # (sp_dvdson_eigh, ED_DIAG.f90:189-204)
+                    sp["route"] = "serial"
+                    evals, evecs = davidson_ground_state(
+                        op, op_apply, dim, neigen, op_diag_flat(op),
+                        ncv=min(ncv, dim),
+                        tol=_lanc_tol(cfg, apply_is_exact(op_apply)),
+                        dtype=torch.float64, polish_apply=polish)
+                elif isinstance(op, BlockSparseSectorOp):
+                    sp["route"] = "chain"
+                    evals, evecs = _blocksparse_ground_state(
+                        cfg, op, dim, neigen, min(ncv, dim))
+                else:
+                    sp["route"] = "serial"
+                    evals, evecs = lanczos_ground_state(
+                        op, op_apply, dim, neigen, ncv=min(ncv, dim),
+                        tol=_lanc_tol(cfg, apply_is_exact(op_apply)),
+                        dtype=torch.float64,
+                        polish_apply=polish)
             else:
-                evals, evecs = lanczos_ground_state(
-                    op, op_apply, dim, neigen, ncv=min(ncv, dim),
-                    tol=_lanc_tol(cfg, apply_is_exact(op_apply)),
-                    dtype=torch.float64,
-                    polish_apply=polish)
-        else:
-            h = build_sector_hamiltonian(cfg, sec, hloc, bath,
-                                         h_basis=h_basis)
-            w, v = np.linalg.eigh(dense_hamiltonian(h))
-            evals, evecs = w[:neigen], v[:, :neigen].T
+                sp["route"] = "eigh"
+                w, v = _host_eigh(cfg, sec, sqn, hloc, bath, h_basis)
+                evals, evecs = w[:neigen], v[:, :neigen].T
 
         diag_log.append((sqn, np.asarray(evals).copy(), lanc_solve))
         sector_tops.append((sqn, float(np.max(evals)) if len(evals) else
@@ -372,13 +405,22 @@ def _diag_full(cfg: EDConfig, table: SectorTable, hloc, bath,
     take exact Boltzmann sums."""
     state_list = StateList(max_size=None)
     for sqn in table.all_qns():
-        h = build_sector_hamiltonian(cfg, table.sector(sqn), hloc, bath,
-                                     h_basis=h_basis)
-        w, v = np.linalg.eigh(dense_hamiltonian(h))
+        w, v = _host_eigh(cfg, table.sector(sqn), sqn, hloc, bath, h_basis)
         for k in range(len(w)):
             state_list.add(EigenState(sqn, float(w[k]),
                                       np.ascontiguousarray(v[:, k])))
     return state_list
+
+
+def _host_eigh(cfg: EDConfig, sec, sqn, hloc, bath, h_basis):
+    """The sector's whole spectrum by host LAPACK: (values, vectors as
+    columns)."""
+    with trace.span("ed.op_build", site="eigh", qn=sqn, backend="host"):
+        trace.count("op_builds.eigh")
+        hd = dense_hamiltonian(build_sector_hamiltonian(cfg, sec, hloc, bath,
+                                                        h_basis=h_basis))
+    with trace.span("ed.eigh", qn=sqn, dim=sec.dim):
+        return np.linalg.eigh(hd)
 
 
 def _post_diag(cfg: EDConfig, state_list: StateList, ctl: DiagState) -> None:

@@ -46,7 +46,7 @@ from .ops.lanczos import lanczos_tridiag_batched, tridiag_eigh
 from .parallel.production import (ShardedSectorOp, apply_counts,
                                   shard_sector_op, should_shard, solver_mesh)
 from .sectors import Sector, SectorQN, SectorTable, op_map
-from .utils.observability import kernel_stats
+from .utils.observability import kernel_stats, trace
 
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
 
@@ -153,7 +153,10 @@ class HCache:
 
     def __call__(self, sqn: SectorQN):
         if sqn not in self._cache:
-            self._cache[sqn] = self._build(self.table.sector(sqn))
+            with trace.span("ed.op_build", site="gf", qn=sqn,
+                            backend=self.backend):
+                trace.count("op_builds.gf")
+                self._cache[sqn] = self._build(self.table.sector(sqn))
         return self._cache[sqn]
 
     def sharded(self, sqn: SectorQN):
@@ -186,56 +189,66 @@ class _ExcBatcher:
     @staticmethod
     def _accumulate(chunk, a_np, b_np) -> None:
         """Tridiagonals -> continued-fraction poles (add_to_lanczos_gf)."""
-        for t, a, b in zip(chunk, a_np, b_np):
-            _, norm2, state_e, isign, peso, gf = t
-            theta, s = tridiag_eigh(a, b)
-            weights = norm2 * peso * (s[0, :] ** 2)
-            poles = isign * (theta - state_e)
-            keep = np.abs(weights) > 1e-30
-            gf.add(weights[keep], poles[keep])
+        with trace.span("ed.gf_poles", chains=len(chunk)):
+            for t, a, b in zip(chunk, a_np, b_np):
+                _, norm2, state_e, isign, peso, gf = t
+                theta, s = tridiag_eigh(a, b)
+                weights = norm2 * peso * (s[0, :] ** 2)
+                poles = isign * (theta - state_e)
+                keep = np.abs(weights) > 1e-30
+                gf.add(weights[keep], poles[keep])
 
     def run(self) -> None:
         from .ops.blocksparse import BlockSparseSectorOp
         from .ops.bs_chain import gf_chain_applicable, gf_tridiag_batch
         n_chain = n_scan = 0
         for jqn, tasks in self.groups.items():
-            dim = tasks[0][0].shape[0]
-            log.debug("gf batch: sector %s, %d excitations, dim %d",
-                      jqn, len(tasks), dim)
-            m = min(dim, self.cfg.lanc_ngfiter)
-            vs = np.stack([t[0] for t in tasks])
-            sop = self.hcache.sharded(jqn)
-            if sop is not None:
-                # this rank's rows of every chain of the target, summed
-                # over the ranks at each projection
-                n_scan += len(tasks)
-                apply_counts["gf_chains"] += len(tasks)
-                kernel_stats.record(m * len(tasks), sop.nnz)
-                v0 = sop.pad_flat_batch(vs).reshape(len(tasks), -1)
-                a_b, b_b = lanczos_tridiag_batched(
-                    sop, v0, m, ShardedSectorOp.apply_flat,
-                    reduce=sop.mesh.allreduce)
-                self._accumulate(tasks, a_b, b_b)
-                continue
-            op, op_apply = self.hcache(jqn)
-            if (isinstance(op, BlockSparseSectorOp)
-                    and dim >= self.cfg.ed_gf_chain_min_dim
-                    and gf_chain_applicable(op, m)):
-                # B4: every excitation of this target in one chain launch
-                n_chain += len(tasks)
-                kernel_stats.record(m * len(tasks), op.nnz)
-                a_b, b_b = gf_tridiag_batch(op, vs, m)
-                self._accumulate(tasks, a_b, b_b)
-                continue
-            bmax = max(1, self.max_bytes // max(dim * 8, 1))
-            for i0 in range(0, len(tasks), bmax):
-                chunk = tasks[i0:i0 + bmax]
-                n_scan += len(chunk)
-                kernel_stats.record(m * len(chunk), getattr(op, "nnz", 0))
-                v0 = torch.as_tensor(vs[i0:i0 + bmax], dtype=torch.float64,
-                                     device=op.device)
-                a_b, b_b = lanczos_tridiag_batched(op, v0, m, op_apply)
-                self._accumulate(chunk, a_b, b_b)
+            with trace.span("ed.gf_chains", qn=jqn, chains=len(tasks)) as sp:
+                dim = tasks[0][0].shape[0]
+                log.debug("gf batch: sector %s, %d excitations, dim %d",
+                          jqn, len(tasks), dim)
+                m = min(dim, self.cfg.lanc_ngfiter)
+                vs = np.stack([t[0] for t in tasks])
+                sop = self.hcache.sharded(jqn)
+                if sop is not None:
+                    # this rank's rows of every chain of the target, summed
+                    # over the ranks at each projection
+                    sp["route"] = "sharded"
+                    n_scan += len(tasks)
+                    apply_counts["gf_chains"] += len(tasks)
+                    kernel_stats.record(m * len(tasks), sop.nnz)
+                    v0 = sop.pad_flat_batch(vs).reshape(len(tasks), -1)
+                    a_b, b_b = lanczos_tridiag_batched(
+                        sop, v0, m, ShardedSectorOp.apply_flat,
+                        reduce=sop.mesh.allreduce)
+                    self._accumulate(tasks, a_b, b_b)
+                    continue
+                op, op_apply = self.hcache(jqn)
+                if (isinstance(op, BlockSparseSectorOp)
+                        and dim >= self.cfg.ed_gf_chain_min_dim
+                        and gf_chain_applicable(op, m)):
+                    # B4: every excitation of this target in one chain launch
+                    sp["route"] = "B4"
+                    n_chain += len(tasks)
+                    kernel_stats.record(m * len(tasks), op.nnz)
+                    a_b, b_b = gf_tridiag_batch(op, vs, m)
+                    self._accumulate(tasks, a_b, b_b)
+                    continue
+                sp["route"] = "scan"
+                bmax = max(1, self.max_bytes // max(dim * 8, 1))
+                for i0 in range(0, len(tasks), bmax):
+                    chunk = tasks[i0:i0 + bmax]
+                    n_scan += len(chunk)
+                    kernel_stats.record(m * len(chunk),
+                                        getattr(op, "nnz", 0))
+                    v0 = torch.as_tensor(vs[i0:i0 + bmax],
+                                         dtype=torch.float64,
+                                         device=op.device)
+                    a_b, b_b = lanczos_tridiag_batched(op, v0, m, op_apply)
+                    if trace.on and v0.is_cuda:
+                        trace.count("h2d_bytes", v0.nbytes)
+                        trace.count("d2h_bytes", a_b.nbytes + b_b.nbytes)
+                    self._accumulate(chunk, a_b, b_b)
         if n_chain or n_scan:
             log.info("gf batch routing: %d excitations via fused chain "
                      "kernel, %d via batched scan", n_chain, n_scan)
@@ -272,19 +285,20 @@ def build_gf_normal(cfg: EDConfig, table: SectorTable, hcache: HCache,
     weights, zeta = state_list.boltzmann_weights(cfg.beta, cfg.finite_t)
     offdiag = cfg.ed_solve_offdiag_gf or cfg.bath_type != "normal"
     batcher = _ExcBatcher(cfg, hcache)
-    for w_s, st in zip(weights, state_list.states):
-        if cfg.finite_t and cfg.beta * (st.e - state_list.emin) >= 200:
-            continue
-        peso = w_s / zeta
-        for ispin in range(cfg.nspin):
-            for iorb in range(cfg.norb):
-                ch = gf.get((ispin, iorb, iorb))
-                _queue_excitation(cfg, table, batcher, st, iorb, ispin,
-                                  True, peso, ch)
-                _queue_excitation(cfg, table, batcher, st, iorb, ispin,
-                                  False, peso, ch)
-        if offdiag:
-            _queue_gf_offdiag(cfg, table, batcher, st, peso, gf)
+    with trace.span("ed.gf_excite"):
+        for w_s, st in zip(weights, state_list.states):
+            if cfg.finite_t and cfg.beta * (st.e - state_list.emin) >= 200:
+                continue
+            peso = w_s / zeta
+            for ispin in range(cfg.nspin):
+                for iorb in range(cfg.norb):
+                    ch = gf.get((ispin, iorb, iorb))
+                    _queue_excitation(cfg, table, batcher, st, iorb, ispin,
+                                      True, peso, ch)
+                    _queue_excitation(cfg, table, batcher, st, iorb, ispin,
+                                      False, peso, ch)
+            if offdiag:
+                _queue_gf_offdiag(cfg, table, batcher, st, peso, gf)
     batcher.run()
     gf.routing = batcher.routing
     if offdiag:

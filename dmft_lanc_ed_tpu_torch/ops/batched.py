@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.observability import kernel_stats
+from ..utils.observability import kernel_stats, trace
 from .dense import DenseSectorOp, matvec_dense, matvec_dense_mixed
 from .lanczos import _build_basis_rr, _ritz, refine_eigenpairs
 
@@ -152,8 +152,14 @@ def lanczos_ground_state_bucket(
     b = len(ops)
     du_p, dd_p, dim_ph, _ = bucket_key(ops[0])
     vshape = (dd_p, du_p) if dim_ph == 1 else (dim_ph, dd_p, du_p)
-    stacked = stack_ops([pad_dense_op_2d(o, du_p, dd_p) for o in ops],
-                        device)
+    padded = [pad_dense_op_2d(o, du_p, dd_p) for o in ops]
+    with trace.span("ed.upload") as up:
+        stacked = stack_ops(padded, device)
+        if trace.on and stacked.device.type == "cuda":
+            nbytes = sum(getattr(stacked, f).nbytes for f in _OP_FIELDS
+                         if getattr(stacked, f) is not None)
+            up["bytes"] = nbytes
+            trace.count("h2d_bytes", nbytes)
     dev = stacked.device
     dims = [o.dim for o in ops]
     neigen = min(neigen, min(dims))

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..hamiltonian import SectorHamiltonian
+from ..utils.observability import trace
 from .dense import electron_only
 
 PAD_SHIFT = 1.0e3   # pad-row diagonal shift
@@ -338,28 +339,37 @@ def build_blocksparse_op(h: SectorHamiltonian, device) -> BlockSparseSectorOp:
     inv_dw = np.empty(dd, np.int64)
     inv_dw[perm_dw] = np.arange(dd)
 
+    nbytes = [0]       # the run tables' few hundred bytes aside
+
     def put(x, dtype=torch.float64):
-        return torch.as_tensor(x, dtype=dtype, device=device)
+        t = torch.as_tensor(x, dtype=dtype, device=device)
+        nbytes[0] += t.nbytes
+        return t
     f32 = torch.float32
-    pop = BsPaddedOp(
-        dw_f32=put(dw_slabs, f32), up_f32=put(up_slabs, f32),
-        diag_a=put(diag_a, f32), diag_b=put(diag_b, f32),
-        diag_p=put(diag_pp), hup_p=put(hup_pp), hdw_p=put(hdw_pp),
-        hup_p32=put(hup_pp, f32), hdw_p32=put(hdw_pp, f32),
-        w_dw=w_dw, d_dw=d_dw, w_up=w_up, d_up=d_up,
-        trim_runs=(dw_runs, up_runs),
-        runs_trim=(*_runs_table(dw_runs, device),
-                   *_runs_table(up_runs, device)),
-        runs_full=(*_runs_table(full_dw, device),
-                   *_runs_table(full_up, device)),
-        nnz=h.nnz)
-    i64 = torch.int64
-    return BlockSparseSectorOp(
-        pop=pop, perm_dw=put(perm_dw, i64), perm_up=put(perm_up, i64),
-        iperm_dw=put(inv_dw, i64), iperm_up=put(inv_up, i64),
-        diag=put(diag), hup=put(hup), hdw=put(hdw),
-        hup32=put(hup, f32), hdw32=put(hdw, f32),
-        dim_dw=dd, dim_up=du, nnz_count=h.nnz)
+    with trace.span("ed.upload") as up:
+        pop = BsPaddedOp(
+            dw_f32=put(dw_slabs, f32), up_f32=put(up_slabs, f32),
+            diag_a=put(diag_a, f32), diag_b=put(diag_b, f32),
+            diag_p=put(diag_pp), hup_p=put(hup_pp), hdw_p=put(hdw_pp),
+            hup_p32=put(hup_pp, f32), hdw_p32=put(hdw_pp, f32),
+            w_dw=w_dw, d_dw=d_dw, w_up=w_up, d_up=d_up,
+            trim_runs=(dw_runs, up_runs),
+            runs_trim=(*_runs_table(dw_runs, device),
+                       *_runs_table(up_runs, device)),
+            runs_full=(*_runs_table(full_dw, device),
+                       *_runs_table(full_up, device)),
+            nnz=h.nnz)
+        i64 = torch.int64
+        op = BlockSparseSectorOp(
+            pop=pop, perm_dw=put(perm_dw, i64), perm_up=put(perm_up, i64),
+            iperm_dw=put(inv_dw, i64), iperm_up=put(inv_up, i64),
+            diag=put(diag), hup=put(hup), hdw=put(hdw),
+            hup32=put(hup, f32), hdw32=put(hdw, f32),
+            dim_dw=dd, dim_up=du, nnz_count=h.nnz)
+        if op.device.type == "cuda":
+            up["bytes"] = nbytes[0]
+            trace.count("h2d_bytes", nbytes[0])
+    return op
 
 
 # --------------------------------------------------------------------------
@@ -540,6 +550,9 @@ def chain_step(op, v32p: torch.Tensor, inv_norm
 def to_padded(op: BlockSparseSectorOp, v) -> torch.Tensor:
     """Natural [..., dd, du] (numpy or tensor, any float dtype) -> permuted
     padded f32 [..., ddp, dup] on the op's device; the pad is exactly 0."""
+    if trace.on and op.device.type == "cuda" and not (
+            isinstance(v, torch.Tensor) and v.is_cuda):
+        trace.count("h2d_bytes", v.nbytes)
     v = torch.as_tensor(v, device=op.device)
     lead = tuple(v.shape[:-2])
     ddp, dup = op.padded_shape

@@ -51,7 +51,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.observability import kernel_stats
+from ..utils.observability import kernel_stats, trace
 from .bf16x3 import (hv_plain, hv_plain3, split3_bf16, split3_op,
                      split_bf16, split_op)
 from .blocksparse import (BsPaddedOp, BlockSparseSectorOp, _check_cuda_inputs,
@@ -563,6 +563,9 @@ def gf_tridiag_batch(op: BlockSparseSectorOp, v_batch, m: int
     All chains of a chunk advance together; chunks only bound the planes'
     device memory (:data:`CHAIN_DEVICE_BUDGET`)."""
     pop = op.pop
+    if trace.on and op.device.type == "cuda" and not (
+            isinstance(v_batch, torch.Tensor) and v_batch.is_cuda):
+        trace.count("h2d_bytes", v_batch.nbytes)
     v_batch = torch.as_tensor(v_batch, device=op.device)
     b_total = v_batch.shape[0]
     per_chain = _chain_bytes(pop, 2, parts=3) - _chain_bytes(pop, 1, parts=3)
@@ -572,6 +575,8 @@ def gf_tridiag_batch(op: BlockSparseSectorOp, v_batch, m: int
     for i0 in range(0, b_total, chunk):
         vs = v_batch[i0:i0 + chunk].reshape(-1, op.dim_dw, op.dim_up)
         al, be = gf_tridiag_call(op, to_padded(op, vs), m)
+        if trace.on and al.is_cuda:
+            trace.count("d2h_bytes", al.nbytes + be.nbytes)
         al_all.append(al.cpu().numpy())
         be_all.append(be.cpu().numpy())
     al = np.concatenate(al_all)

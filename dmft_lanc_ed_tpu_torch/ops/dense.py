@@ -48,6 +48,7 @@ from ..bath import Bath
 from ..config import EDConfig
 from ..hamiltonian import SectorHamiltonian, build_sector_hamiltonian
 from ..sectors import Sector
+from ..utils.observability import trace
 
 
 @dataclass(frozen=True)
@@ -125,28 +126,37 @@ def densify(h: SectorHamiltonian, device) -> DenseSectorOp:
     hdw = _densify_ell(np.asarray(h.dw_cols),
                        np.asarray(h.dw_vals, np.float64), dd)
 
+    nbytes = [0]
+
     def put(a, dtype=torch.float64):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    kw = {}
-    if h.nd_up_src is not None:
-        t_cnt = h.nd_up_src.shape[0]
-        nd_a = np.zeros((t_cnt, du, du))
-        nd_b = np.zeros((t_cnt, dd, dd))
-        for t in range(t_cnt):
-            nd_a[t, np.arange(du), np.asarray(h.nd_up_src[t])] = \
-                np.asarray(h.nd_up_val[t], np.float64)
-            nd_b[t, np.arange(dd), np.asarray(h.nd_dw_src[t])] = \
-                np.asarray(h.nd_dw_val[t], np.float64)
-        kw.update(nd_a=put(nd_a), nd_b=put(nd_b),
-                  nd_a32=put(nd_a, torch.float32),
-                  nd_b32=put(nd_b, torch.float32))
-    if h.ph_diag is not None:
-        kw.update(ph_diag=put(h.ph_diag), eph_el=put(h.eph_el),
-                  eph_x=put(h.eph_x))
-    return DenseSectorOp(
-        diag=put(h.diag), hup=put(hup), hdw=put(hdw),
-        hup32=put(hup, torch.float32), hdw32=put(hdw, torch.float32),
-        nnz_count=h.nnz, **kw)
+        t = torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        nbytes[0] += t.nbytes
+        return t
+    with trace.span("ed.upload") as up:
+        kw = {}
+        if h.nd_up_src is not None:
+            t_cnt = h.nd_up_src.shape[0]
+            nd_a = np.zeros((t_cnt, du, du))
+            nd_b = np.zeros((t_cnt, dd, dd))
+            for t in range(t_cnt):
+                nd_a[t, np.arange(du), np.asarray(h.nd_up_src[t])] = \
+                    np.asarray(h.nd_up_val[t], np.float64)
+                nd_b[t, np.arange(dd), np.asarray(h.nd_dw_src[t])] = \
+                    np.asarray(h.nd_dw_val[t], np.float64)
+            kw.update(nd_a=put(nd_a), nd_b=put(nd_b),
+                      nd_a32=put(nd_a, torch.float32),
+                      nd_b32=put(nd_b, torch.float32))
+        if h.ph_diag is not None:
+            kw.update(ph_diag=put(h.ph_diag), eph_el=put(h.eph_el),
+                      eph_x=put(h.eph_x))
+        op = DenseSectorOp(
+            diag=put(h.diag), hup=put(hup), hdw=put(hdw),
+            hup32=put(hup, torch.float32), hdw32=put(hdw, torch.float32),
+            nnz_count=h.nnz, **kw)
+        if torch.device(device).type == "cuda":
+            up["bytes"] = nbytes[0]
+            trace.count("h2d_bytes", nbytes[0])
+    return op
 
 
 def build_dense_op(cfg: EDConfig, sec: Sector, hloc: np.ndarray, bath: Bath,

@@ -35,7 +35,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.observability import kernel_stats
+from ..utils.observability import kernel_stats, trace
 
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
 
@@ -346,9 +346,10 @@ def refine_eigenpairs(op, op_apply: Callable, vecs: torch.Tensor,
     eigenvector with error eta returns with eigenvalue error O(eta^2) or
     better. Returns (values host f64 [k], vectors f64 [k, *vshape] on the
     device). With ``reduce``, vecs are this rank's rows. Each call counts
-    in :data:`polish_counts`.
+    in :data:`polish_counts`, and is the span ``ed.polish`` on the same
+    clock reads.
     """
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     k = vecs.shape[0]
     grow = np.arange(k)
     depth = steps
@@ -366,8 +367,10 @@ def refine_eigenpairs(op, op_apply: Callable, vecs: torch.Tensor,
             depth *= 2
         depth = min(depth, max(steps, (_POLISH_ROWS - k) // len(grow)))
         resid_prev = worst
+    t1 = time.perf_counter_ns()
     polish_counts["calls"] += 1
-    polish_counts["s"] += time.perf_counter() - t0
+    polish_counts["s"] += (t1 - t0) * 1e-9
+    trace.add("ed.polish", t0, t1, pairs=k)
     return vals, vecs
 
 

@@ -15,9 +15,11 @@ live on the host. Frequency grids match allocate_grids
 (ED_AUX_FUNX.f90:278-304): wm = pi/beta (2n+1), wr = linspace(wini, wfin),
 tau = [0, beta]. A replica bath takes the symmetry basis `h_basis` and the
 impurity's coefficients `lambda_imp` (``hloc.decompose_hloc``). Each solve
-resets ``utils.kernel_stats`` and reports its matvecs, the nonzeros they
-applied and their rates over the diag + gf seconds as
-``timings["kernel_*"]``; ``restore`` re-seeds a solver from the restart
+resets ``utils.kernel_stats`` and reports its matvecs and the nonzeros
+they applied as ``timings["kernel_matvecs"]`` and
+``timings["kernel_nnz_applied"]``; with ``utils.trace`` recording, each
+solve is one ``ed.solve`` span with a child for each block of
+``timings``. ``restore`` re-seeds a solver from the restart
 files ``io.write_all`` writes. ``chispin_flag`` / ``chidens_flag`` add
 the spin and charge susceptibilities (``chi.py``), phonons (``nph > 0``)
 the displacement GF; ``ed_diag_type="full"`` takes every one of them, and
@@ -43,7 +45,7 @@ from .ops.factory import resolve_device
 from .observables import (Observables, local_energy_impurity,
                           observables_impurity, zimp_simp)
 from .sectors import SectorTable
-from .utils.observability import kernel_stats
+from .utils.observability import kernel_stats, trace
 
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
 
@@ -129,10 +131,11 @@ class EDSolver:
         the current one the solve runs with it made current: the kernels
         launch on the current device's stream, and CUDA refuses a launch
         into another device's stream."""
-        if self.device.type == "cuda":
-            with torch.cuda.device(self.device):
-                return self._solve(bath)
-        return self._solve(bath)
+        with trace.span("ed.solve"):
+            if self.device.type == "cuda":
+                with torch.cuda.device(self.device):
+                    return self._solve(bath)
+            return self._solve(bath)
 
     def _solve(self, bath) -> SolveResult:
         cfg = self.cfg
@@ -148,38 +151,45 @@ class EDSolver:
                 torch.cuda.synchronize(self.device)
             return time.perf_counter()
 
-        t0 = synced_time()
-        state_list = diagonalize_impurity(cfg, self.table, self.hloc, bath,
-                                          self.diag_state, device=self.device,
-                                          h_basis=h_basis)
-        timings["diag"] = synced_time() - t0
+        with trace.span("ed.diag"):
+            t0 = synced_time()
+            state_list = diagonalize_impurity(
+                cfg, self.table, self.hloc, bath, self.diag_state,
+                device=self.device, h_basis=h_basis)
+            timings["diag"] = synced_time() - t0
         log.info("diag: %d states, Egs=%.12f (%.2fs)", state_list.size,
                  state_list.emin, timings["diag"])
 
-        t0 = synced_time()
-        hcache = HCache(cfg, self.table, self.hloc, bath, device=self.device,
-                        h_basis=h_basis)
-        if cfg.ed_diag_type == "full":
-            gf = build_gf_full(cfg, self.table, state_list)
-        else:
-            gf = build_gf_normal(cfg, self.table, hcache, state_list)
-        timings["gf"] = synced_time() - t0
+        with trace.span("ed.gf"):
+            t0 = synced_time()
+            hcache = HCache(cfg, self.table, self.hloc, bath,
+                            device=self.device, h_basis=h_basis)
+            if cfg.ed_diag_type == "full":
+                gf = build_gf_full(cfg, self.table, state_list)
+            else:
+                gf = build_gf_normal(cfg, self.table, hcache, state_list)
+            timings["gf"] = synced_time() - t0
 
-        t0 = time.perf_counter()
-        obs = observables_impurity(cfg, self.table, state_list)
-        local_energy_impurity(cfg, self.table, state_list, self.hloc, obs)
-        timings["observables"] = time.perf_counter() - t0
+        with trace.span("ed.observables"):
+            t0 = time.perf_counter()
+            obs = observables_impurity(cfg, self.table, state_list)
+            local_energy_impurity(cfg, self.table, state_list, self.hloc,
+                                  obs)
+            timings["observables"] = time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        zmats = 1j * self.wm
-        zreal = self.wr + 1j * cfg.eps
-        sigma_mats, g_mats = build_sigma(cfg, self.hloc, bath, gf, zmats,
-                                         h_basis)
-        sigma_real, g_real = build_sigma(cfg, self.hloc, bath, gf, zreal,
-                                         h_basis)
-        g0_mats = g0and_bath(cfg, self.hloc, bath, zmats, h_basis).numpy()
-        g0_real = g0and_bath(cfg, self.hloc, bath, zreal, h_basis).numpy()
-        timings["sigma"] = time.perf_counter() - t0
+        with trace.span("ed.sigma"):
+            t0 = time.perf_counter()
+            zmats = 1j * self.wm
+            zreal = self.wr + 1j * cfg.eps
+            sigma_mats, g_mats = build_sigma(cfg, self.hloc, bath, gf, zmats,
+                                             h_basis)
+            sigma_real, g_real = build_sigma(cfg, self.hloc, bath, gf, zreal,
+                                             h_basis)
+            g0_mats = g0and_bath(cfg, self.hloc, bath, zmats,
+                                 h_basis).numpy()
+            g0_real = g0and_bath(cfg, self.hloc, bath, zreal,
+                                 h_basis).numpy()
+            timings["sigma"] = time.perf_counter() - t0
         obs.zimp, obs.simp = zimp_simp(cfg, sigma_mats, self.wm)
 
         chi_spin = chi_dens = gf_ph = None
@@ -190,7 +200,6 @@ class EDSolver:
         if cfg.chispin_flag or cfg.chidens_flag or cfg.dim_ph > 1:
             from . import chi as chi_mod
             full = cfg.ed_diag_type == "full"
-            t0 = synced_time()
 
             def build(name):
                 if full:
@@ -198,15 +207,16 @@ class EDSolver:
                         cfg, self.table, state_list)
                 return getattr(chi_mod, f"build_{name}")(
                     cfg, self.table, hcache, state_list)
-            if cfg.chispin_flag:
-                chi_spin = build("chi_spin")
-            if cfg.chidens_flag:
-                chi_dens = build("chi_dens")
-            if cfg.dim_ph > 1:
-                gf_ph = build("gf_phonon")
-            timings["chi"] = synced_time() - t0
+            with trace.span("ed.chi"):
+                t0 = synced_time()
+                if cfg.chispin_flag:
+                    chi_spin = build("chi_spin")
+                if cfg.chidens_flag:
+                    chi_dens = build("chi_dens")
+                if cfg.dim_ph > 1:
+                    gf_ph = build("gf_phonon")
+                timings["chi"] = synced_time() - t0
         timings["total"] = time.perf_counter() - t_all
-        kernel_stats.seconds = timings["diag"] + timings["gf"]
         timings.update({f"kernel_{k}": v
                         for k, v in kernel_stats.summary().items()})
 

@@ -5,4 +5,4 @@ XLA's CPU backend; here that math is numpy or CPU torch already, so they
 have no counterpart.
 """
 from .observability import (KernelStats, Timer, kernel_stats, profile_trace,
-                            spy_matrix)
+                            spy_matrix, trace)
