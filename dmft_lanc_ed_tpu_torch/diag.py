@@ -56,6 +56,7 @@ from .ops.bs_chain import _K_BUCKETS, chain_applicable, ground_state_seed
 from .ops.factory import (apply_is_exact, exact_apply, make_sector_op,
                           resolve_backend, resolve_device, resolve_precision)
 from .ops.lanczos import lanczos_ground_state, refine_eigenpairs
+from .ops.op_cache import SectorOpCache, sector_op
 from .parallel.bs_sharded import (blocksparse_shardable,
                                   bs_sharded_ground_state)
 from .parallel.production import (shard_sector_op, sharded_backend,
@@ -276,9 +277,13 @@ def _sharded_ground_state(cfg: EDConfig, sqn, sec, hloc, bath, h_basis,
 def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
                          bath: Bath, ctl: Optional[DiagState] = None,
                          device="cuda",
-                         h_basis: Optional[np.ndarray] = None) -> StateList:
+                         h_basis: Optional[np.ndarray] = None,
+                         op_cache: Optional[SectorOpCache] = None
+                         ) -> StateList:
     """One full spectrum determination (diagonalize_impurity, ED_DIAG.f90:22)
-    on `device` (the card unless the caller asks for "cpu")."""
+    on `device` (the card unless the caller asks for "cpu"). With
+    `op_cache` (a solver's), the band-sparse sectors of the serial scan
+    take their operators from it (``ops/op_cache.py``)."""
     device = resolve_device(device)
     if cfg.ed_diag_type == "full":
         return _diag_full(cfg, table, hloc, bath, h_basis)
@@ -318,11 +323,12 @@ def diagonalize_impurity(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
                     cfg, sqn, sec, hloc, bath, h_basis, mesh, dim, neigen,
                     min(ncv, dim), device)
             elif lanc_solve:
-                with trace.span("ed.op_build", site="diag", qn=sqn,
-                                backend=resolve_backend(cfg, device)):
-                    trace.count("op_builds.diag")
-                    op, op_apply = make_sector_op(cfg, sec, hloc, bath,
-                                                  device, h_basis=h_basis)
+                op, op_apply = sector_op(
+                    cfg, sec, hloc, bath, device,
+                    partial(make_sector_op, cfg, sec, hloc, bath, device,
+                            h_basis=h_basis),
+                    "diag", resolve_backend(cfg, device), h_basis=h_basis,
+                    cache=op_cache)
                 ncv = min(dim,
                           cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add)
                 ncv = max(ncv, 2 * neigen + 16)

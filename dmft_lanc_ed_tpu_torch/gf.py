@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -43,6 +44,7 @@ from .config import EDConfig
 from .eigenspace import StateList
 from .ops.factory import resolve_device
 from .ops.lanczos import lanczos_tridiag_batched, tridiag_eigh
+from .ops.op_cache import sector_op
 from .parallel.production import (ShardedSectorOp, apply_counts,
                                   shard_sector_op, should_shard, solver_mesh)
 from .sectors import Sector, SectorQN, SectorTable, op_map
@@ -122,11 +124,13 @@ class HCache:
     unless the caller asks for "cpu"): (op, apply) pairs from the backend
     factory, built once per sector. Under the band-sparse backend, targets
     below ``ed_gf_chain_min_dim`` get the dense operator (its apply is the
-    same mixed contract as the band-sparse flat apply). With a mesh,
+    same mixed contract as the band-sparse flat apply); the others come
+    from the solver's `op_cache` where one is given (``ops/op_cache.py``:
+    the scan's operator of this bath as it is). With a mesh,
     :meth:`sharded` gives the dw-sharded operator of a large target."""
 
     def __init__(self, cfg: EDConfig, table: SectorTable, hloc, bath: Bath,
-                 device="cuda", h_basis=None):
+                 device="cuda", h_basis=None, op_cache=None):
         from .ops.factory import resolve_backend
         self.cfg = cfg
         self.table = table
@@ -136,15 +140,19 @@ class HCache:
         self.h_basis = h_basis
         self.backend = resolve_backend(cfg, self.device)
         self.mesh = solver_mesh(cfg, self.device)
+        self.op_cache = op_cache
         self._cache: Dict[SectorQN, tuple] = {}
         self._sharded: Dict[SectorQN, ShardedSectorOp] = {}
+
+    def _dense_target(self, sec: Sector) -> bool:
+        return (self.backend == "pallas"
+                and sec.dim < self.cfg.ed_gf_chain_min_dim)
 
     def _build(self, sec: Sector):
         from .ops.factory import _DENSE_APPLY, make_sector_op, \
             resolve_precision
         from .ops.dense import build_dense_op
-        if (self.backend == "pallas"
-                and sec.dim < self.cfg.ed_gf_chain_min_dim):
+        if self._dense_target(sec):
             op = build_dense_op(self.cfg, sec, self.hloc, self.bath,
                                 self.device, h_basis=self.h_basis)
             return op, _DENSE_APPLY[resolve_precision(self.cfg, self.device)]
@@ -153,10 +161,12 @@ class HCache:
 
     def __call__(self, sqn: SectorQN):
         if sqn not in self._cache:
-            with trace.span("ed.op_build", site="gf", qn=sqn,
-                            backend=self.backend):
-                trace.count("op_builds.gf")
-                self._cache[sqn] = self._build(self.table.sector(sqn))
+            sec = self.table.sector(sqn)
+            self._cache[sqn] = sector_op(
+                self.cfg, sec, self.hloc, self.bath, self.device,
+                partial(self._build, sec), "gf", self.backend,
+                h_basis=self.h_basis,
+                cache=None if self._dense_target(sec) else self.op_cache)
         return self._cache[sqn]
 
     def sharded(self, sqn: SectorQN):

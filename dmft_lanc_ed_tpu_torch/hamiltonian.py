@@ -144,30 +144,19 @@ def _gather_map(states: np.ndarray, rows, cols, vals) -> Tuple[np.ndarray, np.nd
 # --------------------------------------------------------------------------
 # single-spin hop factor (stored/H_up.f90 & H_dw.f90 behavior)
 # --------------------------------------------------------------------------
-def _spin_hop_coo(cfg: EDConfig, states: np.ndarray, spin: int,
-                  hloc: np.ndarray, diag_hybr: np.ndarray,
-                  hbath: Optional[np.ndarray]):
-    """COO entries of the one-spin hop matrix over `states`."""
-    rows_l: List[np.ndarray] = []
-    cols_l: List[np.ndarray] = []
-    vals_l: List[np.ndarray] = []
+def _spin_hop_terms(cfg: EDConfig, spin: int, hloc: np.ndarray,
+                    diag_hybr: np.ndarray, hbath: Optional[np.ndarray]
+                    ) -> List[Tuple[int, int, float]]:
+    """The one-spin hop terms (pos_create, pos_destroy, amp), zero
+    amplitudes included, in the order :func:`_spin_hop_coo` adds them."""
+    terms: List[Tuple[int, int, float]] = []
     norb, nb = cfg.norb, cfg.nbath
     s = spin if cfg.nspin == 2 else 0
-
-    def add(pos_c, pos_d, amp):
-        if amp == 0.0:
-            return
-        r, c, v = hop_entries(states, pos_c, pos_d, amp)
-        if len(r):
-            rows_l.append(r)
-            cols_l.append(c)
-            vals_l.append(v)
-
     # impurity off-diagonal hloc
     for a in range(norb):
         for b in range(norb):
             if a != b:
-                add(a, b, float(hloc[s, s, a, b]))
+                terms.append((a, b, float(hloc[s, s, a, b])))
     # replica intra-bath hopping
     if cfg.bath_type == "replica" and hbath is not None:
         for k in range(nb):
@@ -175,14 +164,33 @@ def _spin_hop_coo(cfg: EDConfig, states: np.ndarray, spin: int,
                 for b in range(norb):
                     ia, ib = bath_stride(cfg, a, k), bath_stride(cfg, b, k)
                     if ia != ib:
-                        add(ia, ib, float(hbath[s, s, a, b, k]))
+                        terms.append((ia, ib, float(hbath[s, s, a, b, k])))
     # hybridization imp <-> bath (both directions)
     for a in range(norb):
         for k in range(nb):
             ia = bath_stride(cfg, a, k)
             v = float(diag_hybr[s, a, k])
-            add(ia, a, v)   # c_imp -> c^+_bath
-            add(a, ia, v)   # c_bath -> c^+_imp
+            terms.append((ia, a, v))   # c_imp -> c^+_bath
+            terms.append((a, ia, v))   # c_bath -> c^+_imp
+    return terms
+
+
+def _spin_hop_coo(cfg: EDConfig, states: np.ndarray, spin: int,
+                  hloc: np.ndarray, diag_hybr: np.ndarray,
+                  hbath: Optional[np.ndarray]):
+    """COO entries of the one-spin hop matrix over `states`."""
+    rows_l: List[np.ndarray] = []
+    cols_l: List[np.ndarray] = []
+    vals_l: List[np.ndarray] = []
+    for pos_c, pos_d, amp in _spin_hop_terms(cfg, spin, hloc, diag_hybr,
+                                             hbath):
+        if amp == 0.0:
+            continue
+        r, c, v = hop_entries(states, pos_c, pos_d, amp)
+        if len(r):
+            rows_l.append(r)
+            cols_l.append(c)
+            vals_l.append(v)
     if rows_l:
         return (np.concatenate(rows_l), np.concatenate(cols_l),
                 np.concatenate(vals_l))

@@ -204,6 +204,9 @@ class BsPaddedOp:
     runs_full: Tuple = ()
     # the sector Hamiltonian's nonzeros: what a matvec applies (counters)
     nnz: int = 0
+    # R, the rank of the diagonal's ACA: diag_a's columns R and R + 1
+    # (and diag_b's rows) carry the pad shift
+    diag_rank: int = 0
 
     @property
     def padded_shape(self) -> Tuple[int, int]:
@@ -358,7 +361,7 @@ def build_blocksparse_op(h: SectorHamiltonian, device) -> BlockSparseSectorOp:
                        *_runs_table(up_runs, device)),
             runs_full=(*_runs_table(full_dw, device),
                        *_runs_table(full_up, device)),
-            nnz=h.nnz)
+            nnz=h.nnz, diag_rank=r)
         i64 = torch.int64
         op = BlockSparseSectorOp(
             pop=pop, perm_dw=put(perm_dw, i64), perm_up=put(perm_up, i64),

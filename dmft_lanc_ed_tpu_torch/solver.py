@@ -23,7 +23,10 @@ solve is one ``ed.solve`` span with a child for each block of
 files ``io.write_all`` writes. ``chispin_flag`` / ``chidens_flag`` add
 the spin and charge susceptibilities (``chi.py``), phonons (``nph > 0``)
 the displacement GF; ``ed_diag_type="full"`` takes every one of them, and
-the GF, from the full spectrum.
+the GF, from the full spectrum. A solver keeps its band-sparse sector
+operators on the device from one solve to the next (``op_cache``,
+``ops/op_cache.py``): a later solve refills their bath-dependent values
+there, and each solve drops the operators it did not use.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from .diag import DiagState, diagonalize_impurity
 from .eigenspace import StateList
 from .gf import GFData, HCache, build_gf_full, build_gf_normal, build_sigma
 from .ops.factory import resolve_device
+from .ops.op_cache import SectorOpCache
 from .observables import (Observables, local_energy_impurity,
                           observables_impurity, zimp_simp)
 from .sectors import SectorTable
@@ -105,6 +109,8 @@ class EDSolver:
         self.wm = matsubara_grid(cfg)
         self.wr = real_grid(cfg)
         self.last_result: Optional[SolveResult] = None
+        # band-sparse sector operators kept across solves (ops/op_cache.py)
+        self.op_cache = SectorOpCache()
 
     # -- checkpoint/restart (reference .restart file protocol) -------------
     def restore(self, workdir: str = ".", suffix: str = ""
@@ -131,11 +137,15 @@ class EDSolver:
         the current one the solve runs with it made current: the kernels
         launch on the current device's stream, and CUDA refuses a launch
         into another device's stream."""
-        with trace.span("ed.solve"):
-            if self.device.type == "cuda":
-                with torch.cuda.device(self.device):
-                    return self._solve(bath)
-            return self._solve(bath)
+        self.op_cache.begin_solve()
+        try:
+            with trace.span("ed.solve"):
+                if self.device.type == "cuda":
+                    with torch.cuda.device(self.device):
+                        return self._solve(bath)
+                return self._solve(bath)
+        finally:
+            self.op_cache.end_solve()
 
     def _solve(self, bath) -> SolveResult:
         cfg = self.cfg
@@ -155,7 +165,7 @@ class EDSolver:
             t0 = synced_time()
             state_list = diagonalize_impurity(
                 cfg, self.table, self.hloc, bath, self.diag_state,
-                device=self.device, h_basis=h_basis)
+                device=self.device, h_basis=h_basis, op_cache=self.op_cache)
             timings["diag"] = synced_time() - t0
         log.info("diag: %d states, Egs=%.12f (%.2fs)", state_list.size,
                  state_list.emin, timings["diag"])
@@ -163,7 +173,8 @@ class EDSolver:
         with trace.span("ed.gf"):
             t0 = synced_time()
             hcache = HCache(cfg, self.table, self.hloc, bath,
-                            device=self.device, h_basis=h_basis)
+                            device=self.device, h_basis=h_basis,
+                            op_cache=self.op_cache)
             if cfg.ed_diag_type == "full":
                 gf = build_gf_full(cfg, self.table, state_list)
             else:

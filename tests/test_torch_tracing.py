@@ -1,7 +1,8 @@
 """The solve's spans and counters (``utils.observability.trace``): off
 they record nothing; on they nest, carry the solve number, and sit at the
-solve's layer boundaries, one ``ed.sector`` a scanned sector and one
-``op_builds`` count a host operator build."""
+solve's layer boundaries, one ``ed.sector`` a scanned sector, one
+``op_builds`` count a host operator build and one ``op_cache`` count a
+miss, refill or reuse of the solver's band-sparse operators."""
 import time
 from collections import Counter
 
@@ -10,6 +11,7 @@ import pytest
 
 import dmft_lanc_ed_tpu_torch as pt
 from dmft_lanc_ed_tpu_torch import diag, gf
+from dmft_lanc_ed_tpu_torch.ops import op_cache
 from dmft_lanc_ed_tpu_torch.ops.lanczos import polish_counts
 from dmft_lanc_ed_tpu_torch.utils.observability import NO_SPAN, trace
 
@@ -96,6 +98,10 @@ def test_solve_spans_cover_the_routes_and_count_the_builds(
         return call
     monkeypatch.setattr(diag, "make_sector_op",
                         counting("diag", diag.make_sector_op))
+    # the solver's op cache builds the scan's band-sparse ops itself (the
+    # GF's band-sparse targets here are the scan's, reused)
+    monkeypatch.setattr(op_cache, "build_blocksparse_op",
+                        counting("diag", op_cache.build_blocksparse_op))
     monkeypatch.setattr(diag, "build_dense_op",
                         counting("bucket", diag.build_dense_op))
     monkeypatch.setattr(diag, "build_sector_hamiltonian",
@@ -131,8 +137,19 @@ def test_solve_spans_cover_the_routes_and_count_the_builds(
     assert sum(x.attrs["sectors"] for x in bucket) == sum(
         x.attrs["route"] == "batched" for x in sectors)
 
-    # op_builds by site: the builds made
-    assert rec.counters == {f"op_builds.{k}": v for k, v in made.items()}
+    # op_builds by site: the builds made; under the band-sparse backend
+    # the solver's op cache builds each chain sector's op (a miss) and
+    # hands the GF the scan's op of a band-sparse target (a reuse, no span)
+    expected_cache = {}
+    if backend == "pallas":
+        big = {x.attrs["qn"] for x in sp if x.name == "ed.gf_chains"
+               and x.attrs["route"] == "B4"}
+        expected_cache = {"op_cache.miss": made["diag"],
+                          "op_cache.reuse": len(big)}
+        assert [x.attrs["cache"] for x in sp if x.name == "ed.op_build"
+                and x.attrs["site"] == "diag"] == ["miss"] * made["diag"]
+    assert rec.counters == {
+        **{f"op_builds.{k}": v for k, v in made.items()}, **expected_cache}
     assert sum(made.values()) == by["ed.op_build"]
     assert all(sp[x.parent].name == "ed.gf_chains"
                for x in sp if x.name == "ed.op_build"
