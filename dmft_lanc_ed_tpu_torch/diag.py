@@ -32,6 +32,7 @@ Lanczos solves, as in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 from dataclasses import dataclass, field
 from functools import partial
@@ -55,7 +56,8 @@ from .ops.dense import build_dense_op
 from .ops.bs_chain import _K_BUCKETS, chain_applicable, ground_state_seed
 from .ops.factory import (apply_is_exact, exact_apply, make_sector_op,
                           resolve_backend, resolve_device, resolve_precision)
-from .ops.lanczos import lanczos_ground_state, refine_eigenpairs
+from .ops.lanczos import (_POLISH_RTOL, _refine_once, lanczos_ground_state,
+                          refine_eigenpairs, restart_counts)
 from .ops.op_cache import SectorOpCache, sector_op
 from .parallel.bs_sharded import (blocksparse_shardable,
                                   bs_sharded_ground_state)
@@ -66,6 +68,18 @@ from .sectors import SectorQN, SectorTable
 from .utils.observability import trace
 
 log = logging.getLogger("dmft_lanc_ed_tpu_torch")
+
+# thick restarts of the two-stage solve's mixed top-off, and the calls of
+# its guard's parity split and f64 top-off, since the last reset (each
+# solve reports its own in timings)
+topoff_counts = {"topoff_restarts": 0, "parity_splits": 0, "f64_topoffs": 0}
+_PARITY_MIX = 1e-5     # norm of a unit vector's smaller spin-flip part
+_F64_TOL = 1e-12       # residual tolerance of the f64 top-off
+_F64_NCV = 64          # its smallest Krylov basis
+# at T = 0 the polish holds its rounds for the levels within this share of
+# |E0| of a sector's lowest (or 10 gs_threshold, if more): one further up
+# never joins the ground set, whatever its last digits
+_POLISH_HOLD = 1e-6
 
 
 def _lanc_tol(cfg: EDConfig, exact: bool) -> float:
@@ -164,6 +178,130 @@ def _solve_batched_sectors(cfg: EDConfig, table: SectorTable, hloc, bath,
     return results
 
 
+def _spin_flip_symmetric(op) -> bool:
+    """True when the sector is its own twin and H commutes with the spin
+    flip, which there is X -> X^T of the [dim_dw, dim_up] vector and of
+    the permuted padded one (nup == ndw with both spins alike: the same
+    states, the same permutation and the same hop factor; a diagonal
+    symmetric to the last bits of its sums)."""
+    pop = op.pop
+    if op.dim_dw != op.dim_up or not torch.equal(op.perm_dw, op.perm_up):
+        return False
+    n = op.dim_dw
+    d = pop.diag_p[:n, :n]
+    scale = max(1.0, float(d.abs().max()))
+    return (torch.equal(pop.hup_p, pop.hdw_p) and
+            float((d - d.T).abs().max()) <= 1e-13 * scale)
+
+
+def _parity_split(pop, vals, vecs: torch.Tensor, neigen: int,
+                  force: bool = False, hold: Optional[float] = None):
+    """The handed-over vectors of a spin-flip symmetric sector, split
+    into their even and odd parts where any of them mixes the two (or
+    always, with `force`), cut to the lowest `neigen` by a Rayleigh-Ritz
+    step and polished together in f64: (values, vectors), each of one
+    parity; ``hold`` as :func:`refine_eigenpairs` takes it.
+
+    A pair of levels of opposite parity closer than the mixed top-off's
+    floor (the Ising-Hund doublet, impurity up-up-up against
+    down-down-down, which only the bath splits) reaches the polish as one
+    mixture of the two; each part alone lies in one parity class, so the
+    polish splits the pair exactly, however close it is. Split before the
+    polish, the handover costs the polish no rounds on the mixture."""
+    flip = vecs.transpose(-1, -2)
+    parts = (0.5 * (vecs + flip), 0.5 * (vecs - flip))
+    norms = [torch.linalg.vector_norm(p.flatten(1), dim=1) for p in parts]
+    mixed = float(torch.minimum(*norms).max()) > _PARITY_MIX
+    if not (mixed or force):
+        return vals, vecs
+    with (trace.span("ed.parity_split", pairs=len(vecs)) if mixed
+          else contextlib.nullcontext()):
+        if mixed:
+            topoff_counts["parity_splits"] += 1
+            trace.count("parity_splits")
+        kept = []
+        for part, nrm in zip(parts, norms):
+            for v, nv in zip(part, nrm.tolist()):
+                if nv <= _PARITY_MIX:
+                    continue
+                w = (v / nv).flatten()
+                for _ in range(2):
+                    for u in kept:
+                        w = w - torch.dot(u, w) * u
+                nw = float(torch.linalg.vector_norm(w))
+                if nw > 1e-3:
+                    kept.append(w / nw)
+        if len(kept) < neigen:
+            return vals, vecs
+        block = torch.stack(kept).reshape((-1,) + tuple(vecs.shape[1:]))
+        if len(kept) > neigen:
+            _, block, _ = _refine_once(pop, matvec_bs_exact_padded, block,
+                                       0, np.arange(0))
+            block = block[:neigen]
+        return refine_eigenpairs(pop, matvec_bs_exact_padded, block,
+                                 hold=hold)
+
+
+def _f64_topoff(pop, v0: torch.Tensor, neigen: int, ncv: int, reason: str):
+    """Thick-restart Lanczos over the f64-exact apply from `v0`, to a
+    residual of _F64_TOL: the fallback where the mixed top-off raised or
+    its polished lowest pair missed the polish's target (a cluster of
+    levels closer than the mixed floor, of which the handover held a
+    mixture). None where it does not converge either."""
+    with trace.span("ed.f64_topoff", reason=reason) as sp:
+        topoff_counts["f64_topoffs"] += 1
+        trace.count("f64_topoffs")
+        restarts = restart_counts["ground_state"]
+        try:
+            out = lanczos_ground_state(
+                pop, matvec_bs_exact_padded, pop.dim, neigen,
+                ncv=max(ncv, _F64_NCV), tol=_F64_TOL, dtype=torch.float64,
+                v0=v0, vshape=pop.padded_shape)
+        except RuntimeError as exc:
+            log.warning("f64 top-off (%s) did not converge: %s", reason, exc)
+            out = None
+        sp["restarts"] = restart_counts["ground_state"] - restarts
+    return out
+
+
+def _polish(op, vals, vecs_p, neigen: int, flip: bool,
+            hold: Optional[float]):
+    """The f64 polish of the mixed top-off's handover, split by spin-flip
+    parity first where the sector has that symmetry (`flip`)."""
+    pop = op.pop
+    vecs = torch.as_tensor(vecs_p, device=op.device).double().reshape(
+        (-1,) + pop.padded_shape)
+    if flip:
+        return _parity_split(pop, vals, vecs, neigen, force=True, hold=hold)
+    return refine_eigenpairs(pop, matvec_bs_exact_padded, vecs, hold=hold)
+
+
+def _guard(op, vals, vecs_p, neigen: int, ncv: int, flip: bool,
+           hold: Optional[float] = None):
+    """What the two-stage solve hands back, held to the sector's lowest
+    levels: split by spin-flip parity where the sector has that symmetry
+    (`flip`) and a vector mixes the classes; redone by the f64 top-off
+    where the lowest pair's residual |H y - theta y| missed the polish's
+    target."""
+    pop = op.pop
+    vecs = torch.as_tensor(vecs_p, device=op.device).double().reshape(
+        (-1,) + pop.padded_shape)
+    if flip:
+        vals, vecs = _parity_split(pop, vals, vecs, neigen, hold=hold)
+    r = matvec_bs_exact_padded(pop, vecs[0]) - float(vals[0]) * vecs[0]
+    if float(torch.linalg.vector_norm(r)) > 2 * _POLISH_RTOL * max(
+            1.0, abs(float(vals[0]))):
+        out = _f64_topoff(pop, vecs.sum(0), neigen, ncv, "residual")
+        if out is not None and out[0][0] <= vals[0]:
+            vals, vecs_p = out
+            vecs = torch.as_tensor(vecs_p, device=op.device).reshape(
+                (-1,) + pop.padded_shape)
+            if flip:
+                vals, vecs = _parity_split(pop, vals, vecs, neigen,
+                                           hold=hold)
+    return vals, vecs
+
+
 def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
                               ncv: int, use_chain: Optional[bool] = None):
     """Two-stage ground-state path of the band-sparse backend.
@@ -175,9 +313,14 @@ def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
     one B1 matvec launch per step. Stage 2: with a good chain seed and one
     wanted state, the f64 Rayleigh-Ritz polish alone (a few guarded calls);
     otherwise a mixed-precision Lanczos top-off seeded with stage 1's
-    vector plus the polish. Everything runs in the permuted padded space;
-    the final vectors return to the natural order once. Returns (values
-    host f64, vectors [k, dim] host f64)."""
+    vector, then the polish (:func:`_polish`: in a spin-flip symmetric
+    sector, of the handover's even and odd parts; at T = 0 held only to
+    the levels near the sector's lowest). What either hands back passes
+    :func:`_guard` (spin-flip parity, the lowest pair's residual, the f64
+    top-off); where the mixed top-off raises, the f64 top-off takes over
+    from the seed. Everything runs in the permuted padded space; the final
+    vectors return to the natural order once. Returns (values host f64,
+    vectors [k, dim] host f64)."""
     pop = op.pop
     pshape = pop.padded_shape
 
@@ -194,6 +337,9 @@ def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
                 trace.count("d2h_bytes", vn.nbytes)
             return np.asarray(vals), vn.cpu().numpy()
 
+    flip = _spin_flip_symmetric(op)
+    hold = None if cfg.finite_t else max(_POLISH_HOLD,
+                                         10.0 * cfg.gs_threshold)
     if use_chain is None:
         use_chain = chain_applicable(op)
     if use_chain:
@@ -214,7 +360,8 @@ def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
                 seed = vecs[0]
                 if float(torch.linalg.vector_norm(r)) <= 1e-7 * max(
                         1.0, abs(vals[0])):
-                    return unpad_all(vals, vecs)
+                    return unpad_all(*_guard(op, vals, vecs, neigen, ncv,
+                                             flip))
     else:
         # the JAX package's jitted thick restart traces the op, which drops
         # the trim runs, and so applies the whole-window kernel B1b
@@ -230,12 +377,28 @@ def _blocksparse_ground_state(cfg: EDConfig, op, dim: int, neigen: int,
                 dtype=torch.float32, v0=v0, vshape=pshape)
             seed = torch.as_tensor(evecs_p[0],
                                    device=op.device).reshape(pshape)
-    with trace.span("ed.topoff"):
-        vals, vecs_p = lanczos_ground_state(
-            pop, matvec_bs_mixed_padded, pop.dim, neigen, ncv=ncv,
-            tol=_lanc_tol(cfg, False), dtype=torch.float64,
-            v0=seed, vshape=pshape, polish_apply=matvec_bs_exact_padded)
-    return unpad_all(vals, vecs_p)
+    with trace.span("ed.topoff") as sp:
+        restarts = restart_counts["ground_state"]
+        try:
+            out = lanczos_ground_state(
+                pop, matvec_bs_mixed_padded, pop.dim, neigen, ncv=ncv,
+                tol=_lanc_tol(cfg, False), dtype=torch.float64,
+                v0=seed, vshape=pshape, fast_proj=op.device.type == "cuda")
+        except RuntimeError as exc:
+            log.info("mixed top-off: %s; the f64 top-off takes over", exc)
+            out = None
+        restarts = restart_counts["ground_state"] - restarts
+        topoff_counts["topoff_restarts"] += restarts
+        sp["restarts"] = restarts
+        trace.count("topoff.restarts", restarts)
+    if out is None:
+        out = _f64_topoff(pop, seed, neigen, ncv, "raised")
+        if out is None:
+            raise RuntimeError("two-stage solve: neither the mixed nor the "
+                               f"f64 top-off converged (dim={dim})")
+    else:
+        out = _polish(op, *out, neigen, flip, hold)
+    return unpad_all(*_guard(op, *out, neigen, ncv, flip, hold))
 
 
 def _sharded_ground_state(cfg: EDConfig, sqn, sec, hloc, bath, h_basis,

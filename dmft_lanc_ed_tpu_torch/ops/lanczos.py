@@ -213,6 +213,7 @@ def lanczos_ground_state(
     polish_apply: Optional[Callable] = None,
     reduce: Optional[Callable] = None,
     shard: Tuple[int, int] = (0, 1),
+    fast_proj: Optional[bool] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Lowest `neigen` eigenpairs of the operator (replaces ARPACK `sp_eigh`).
 
@@ -227,13 +228,17 @@ def lanczos_ground_state(
     DimUp]), `dim` the global dimension; a random (re)start is the same
     global draw on every rank, of which each takes its own rows.
 
+    ``fast_proj`` (default: with ``polish_apply``, in f64 on a card) runs
+    the basis projections on a true-f32 shadow.
+
     Returns (energies [k], vectors [k, prod(vshape)] host f64) ascending,
     k == neigen.
     """
     vshape = tuple(vshape) if vshape is not None else (dim,)
     dev = op.device
-    fast_proj = (polish_apply is not None and dtype == torch.float64
-                 and dev.type == "cuda")
+    if fast_proj is None:
+        fast_proj = polish_apply is not None and dev.type == "cuda"
+    fast_proj = fast_proj and dtype == torch.float64
     neigen = min(neigen, dim)
     m = ncv or max(2 * neigen + 16, 32)
     m = min(m, dim)
@@ -317,7 +322,8 @@ _POLISH_ROWS = 64      # cap on one round's block Krylov basis (rows)
 
 def refine_eigenpairs(op, op_apply: Callable, vecs: torch.Tensor,
                       steps: int = 2, max_rounds: int = 12,
-                      reduce: Optional[Callable] = None
+                      reduce: Optional[Callable] = None,
+                      hold: Optional[float] = None
                       ) -> Tuple[np.ndarray, torch.Tensor]:
     """f64 Rayleigh-Ritz polish of approximate eigenpairs.
 
@@ -331,9 +337,11 @@ def refine_eigenpairs(op, op_apply: Callable, vecs: torch.Tensor,
     while it is still 1e-12 off. A pair that has converged stays in the
     next round's basis but grows no Krylov rows of its own. The depth
     starts at ``steps``; after a round whose largest residual fell less
-    than 10x it doubles (up to ``_POLISH_ROWS`` rows in all). A depth-2
-    round squares the error only where the gap is wide against the
-    spectrum's span; where it is narrow (the Jx/Jp sectors) it contracts
+    than 10x it goes to the most that ``_POLISH_ROWS`` rows in all allow
+    (a doubling depth spent three rounds of 4, 8 and 16 steps that moved
+    a near-degenerate pair's residual less than one 31-step round did).
+    A depth-2 round squares the error only where the gap is wide against
+    the spectrum's span; where it is narrow (the Jx/Jp sectors) it contracts
     the error little, and three such rounds left a mixed solve's ground
     state 3e-11 to 7e-11 from the exact energy. Up to twelve rounds: where
     the last wanted level has a neighbor above it closer than the mixed
@@ -342,9 +350,15 @@ def refine_eigenpairs(op, op_apply: Callable, vecs: torch.Tensor,
     cannot fall below their gap until the rounds have filtered out the
     low-lying rest and split the pair; at nbath = 5, a pair 4.5e-7 apart
     stayed 8.9e-9 off after six rounds and came within 4e-15 in twelve
-    (the JAX package returns the upper level of such a pair). An input
-    eigenvector with error eta returns with eigenvalue error O(eta^2) or
-    better. Returns (values host f64 [k], vectors f64 [k, *vshape] on the
+    (the JAX package returns the upper level of such a pair). With
+    ``hold``, only the pairs within ``hold * max(1, |theta_0|)`` of the
+    lowest count: they alone grow rows and hold the rounds, and the rest
+    take what the Rayleigh-Ritz step gives them (the T = 0 scan, where a
+    level that far up never joins the ground set: a second level cut from
+    a near neighbor above it otherwise spent all twelve rounds and still
+    ended 1e-7 to 1e-4 off, and the lowest converges faster alone). An
+    input eigenvector with error eta returns with eigenvalue error
+    O(eta^2) or better. Returns (values host f64 [k], vectors f64 [k, *vshape] on the
     device). With ``reduce``, vecs are this rank's rows. Each call counts
     in :data:`polish_counts`, and is the span ``ed.polish`` on the same
     clock reads.
@@ -359,13 +373,17 @@ def refine_eigenpairs(op, op_apply: Callable, vecs: torch.Tensor,
         vals, vecs, resid = _refine_once(op, op_apply, vecs, depth, grow,
                                          reduce)
         rel = resid / np.maximum(np.abs(vals), 1.0)
-        grow = np.flatnonzero(rel > _POLISH_RTOL)
-        if not len(grow):
+        off = rel > _POLISH_RTOL
+        held = off if hold is None else off & (
+            vals - vals[0] <= hold * max(1.0, abs(vals[0])))
+        if not held.any():
             break
-        worst = float(rel.max())
+        grow = np.flatnonzero(held)
+        cap = max(steps, (_POLISH_ROWS - k) // len(grow))
+        worst = float(rel[held].max())
         if resid_prev is not None and worst > 0.1 * resid_prev:
-            depth *= 2
-        depth = min(depth, max(steps, (_POLISH_ROWS - k) // len(grow)))
+            depth = cap
+        depth = min(depth, cap)
         resid_prev = worst
     t1 = time.perf_counter_ns()
     polish_counts["calls"] += 1

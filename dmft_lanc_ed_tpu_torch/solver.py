@@ -17,8 +17,13 @@ tau = [0, beta]. A replica bath takes the symmetry basis `h_basis` and the
 impurity's coefficients `lambda_imp` (``hloc.decompose_hloc``). Each solve
 resets ``utils.kernel_stats`` and reports its matvecs and the nonzeros
 they applied as ``timings["kernel_matvecs"]`` and
-``timings["kernel_nnz_applied"]``; with ``utils.trace`` recording, each
-solve is one ``ed.solve`` span with a child for each block of
+``timings["kernel_nnz_applied"]``, and their rates over the diag + gf
+seconds as ``timings["kernel_matvecs_per_s"]`` and
+``timings["kernel_nnz_per_s"]`` (as the JAX package defines them), and
+the two-stage solve's mixed top-off restarts, parity splits and f64
+top-offs as ``timings["topoff_restarts"]``, ``["parity_splits"]`` and
+``["f64_topoffs"]`` (``diag.topoff_counts``); with ``utils.trace``
+recording, each solve is one ``ed.solve`` span with a child for each block of
 ``timings``. ``restore`` re-seeds a solver from the restart
 files ``io.write_all`` writes. ``chispin_flag`` / ``chidens_flag`` add
 the spin and charge susceptibilities (``chi.py``), phonons (``nph > 0``)
@@ -41,7 +46,7 @@ import torch
 from .bath import init_bath, pack_bath, unpack_bath
 from .bath_functions import g0and_bath
 from .config import EDConfig
-from .diag import DiagState, diagonalize_impurity
+from .diag import DiagState, diagonalize_impurity, topoff_counts
 from .eigenspace import StateList
 from .gf import GFData, HCache, build_gf_full, build_gf_normal, build_sigma
 from .ops.factory import resolve_device
@@ -155,6 +160,7 @@ class EDSolver:
         h_basis = self.h_basis
         kernel_stats.reset()
         timings = {}
+        counts0 = dict(topoff_counts)
 
         def synced_time():
             if self.device.type == "cuda":
@@ -228,6 +234,8 @@ class EDSolver:
                     gf_ph = build("gf_phonon")
                 timings["chi"] = synced_time() - t0
         timings["total"] = time.perf_counter() - t_all
+        timings.update({k: n - counts0[k] for k, n in topoff_counts.items()})
+        kernel_stats.seconds = timings["diag"] + timings["gf"]
         timings.update({f"kernel_{k}": v
                         for k, v in kernel_stats.summary().items()})
 

@@ -390,9 +390,7 @@ def test_kernel_counters_match_reference(nbath, threshold):
     # reset per solve: a second solve counts the same
     assert s_p.solve(s_p.init_bath()).timings["kernel_matvecs"] == \
         t_p["kernel_matvecs"]
-    # no rates: the diag + gf seconds hold the host build too
-    assert "kernel_matvecs_per_s" not in t_p
-    assert "kernel_nnz_per_s" not in t_p
+    assert t_p["kernel_matvecs_per_s"] > 0
 
 
 def test_kernel_counters_thick_restart_and_batched():

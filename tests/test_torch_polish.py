@@ -150,3 +150,39 @@ def test_polish_apply_takes_the_jxjp_terms_in_f64():
         assert np.abs(y - y_ref).max() <= APPLY_TOL * scale
         y32 = apply(op, torch.as_tensor(xi)).numpy()
         assert np.abs(y32 - y_ref).max() > APPLY_TOL * scale
+
+
+
+def test_polish_hold_converges_the_lowest_alone(monkeypatch):
+    """A handover whose second vector mixes a pair 1e-8 apart, one above
+    the lowest level and 1e-3 below the rest (a cut pair, as the T = 0
+    scan of the Mott side hands it over): without ``hold`` the polish
+    spends all twelve rounds on the pair; with it the lowest alone grows
+    rows and holds the rounds, which end once it reaches the target. The
+    lowest level comes out to 1e-12 either way."""
+    from dmft_lanc_ed_tpu_torch.ops import lanczos as plz
+    n = 1500
+    rng = np.random.default_rng(3)
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    w = np.concatenate([[-2.0, -1.0, -1.0 + 1e-8],
+                        -1.0 + np.linspace(1e-3, 3.0, n - 3)])
+    h = torch.as_tensor((q * w) @ q.T)
+    v0 = q[:, 0] + 1e-5 * rng.standard_normal(n)
+    v1 = q[:, 1] + q[:, 2] + 1e-5 * rng.standard_normal(n)
+    vecs = torch.as_tensor(np.stack([v0 / np.linalg.norm(v0),
+                                     v1 / np.linalg.norm(v1)]))
+    real = plz._refine_once
+    rounds = []
+
+    def counted(*a, **kw):
+        rounds[-1] += 1
+        return real(*a, **kw)
+    monkeypatch.setattr(plz, "_refine_once", counted)
+    for hold in (None, 1e-6):
+        rounds.append(0)
+        vals, out = plz.refine_eigenpairs(h, lambda op, v: op @ v, vecs,
+                                          hold=hold)
+        assert abs(vals[0] - w[0]) <= 1e-12
+        r = h @ out[0] - vals[0] * out[0]
+        assert float(torch.linalg.vector_norm(r)) <= 2e-9 * abs(vals[0])
+    assert rounds[0] == 12 and rounds[1] <= 3

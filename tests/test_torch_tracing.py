@@ -146,6 +146,15 @@ def test_solve_spans_cover_the_routes_and_count_the_builds(
                and x.attrs["route"] == "B4"}
         expected_cache = {"op_cache.miss": made["diag"],
                           "op_cache.reuse": len(big)}
+        # the mixed top-off's restarts: a counter, each ed.topoff's
+        # attribute, and the solve's timings; the guard's counters where
+        # it fired
+        expected_cache["topoff.restarts"] = res.timings["topoff_restarts"]
+        assert res.timings["topoff_restarts"] == sum(
+            x.attrs["restarts"] for x in sp if x.name == "ed.topoff") > 0
+        for k in ("parity_splits", "f64_topoffs"):
+            if res.timings[k]:
+                expected_cache[k] = res.timings[k]
         assert [x.attrs["cache"] for x in sp if x.name == "ed.op_build"
                 and x.attrs["site"] == "diag"] == ["miss"] * made["diag"]
     assert rec.counters == {
